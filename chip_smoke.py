@@ -18,9 +18,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      12-frame 720x1280 clip degraded on the device to 180x320, frames kept
      in memory.  Checks the output frames, the kernels' launch counts per
      forward batch, and the bf16 kernel path against the float32 plain
-     path on the first window; prints HR frames/s and peak memory.
+     path on the first window; prints HR frames/s and peak memory;
+  5. training at the paper config (batch 16, LR crop 32 / GT 128, 7
+     frames, float32):
+     a. kernels 5 and 6 (the PFRB backward) against their plain versions
+        at the training shape [16,7,32,32,64] and at [2,7,180,320,64], in
+        float32 and bfloat16, with their times beside the plain versions'
+        and their weight gradients bitwise equal over two launches;
+     b. one fixed batch through full-width PFNL: the kernel path's loss and
+        every parameter's gradient against pure autograd on the plain
+        path (TF32 off), worst relative L2 error per parameter;
+     c. Trainer.fit over seeded in-memory clips through TrainPipeline: the
+        kernels' launches per step, finite losses, steady steps/s and peak
+        memory, then the same steps on the plain path.
 
-The second-to-last line is a JSON summary of the kernels; the last line is
+The second-to-last line is a JSON summary of the kernels (launches: the
+inference path's of phase 4 plus the training path's of phase 5c; errors
+and times: phase 3's bf16 ones for kernels 1-4, phase 5a's float32 ones at
+the training shape for kernels 5 and 6); the last line is
 {"ok": true, "device": {...}}.  There is no CPU fallback: without a CUDA
 device the script fails before printing any result.
 """
@@ -39,17 +54,25 @@ B, T, H, W, C = 2, 7, 180, 320, 64      # phase 3 shapes: the main path's
 CLIP_FRAMES, BATCH_WINDOWS = 12, 4      # phase 4: three forward batches of 4 windows
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
 E2E_TOL = 2e-2                          # ||SR_bf16,kernels - SR_f32,plain|| / ||SR_f32,plain||
+TRAIN_B, TRAIN_HW = 16, 32              # phase 5: the paper's batch and LR crop, 7 frames
+BWD_SHAPES = [(TRAIN_B, T, TRAIN_HW, TRAIN_HW), (B, T, H, W)]
+GRAD_TOL = 1e-3                         # ||g_kernels - g_plain|| / ||g_plain|| per parameter
+FIT_WARM, FIT_STEPS = 3, 22             # phase 5c: steps before / inside the timed window
 TPU_KERNEL = {
     "nonlocal_flash": "pfnl_tpu/ops/pallas/nonlocal_flash.py:103",
     "pfrb_a": "pfnl_tpu/ops/pallas/pfrb_pack.py:313",
     "pfrb_b": "pfnl_tpu/ops/pallas/pfrb_pack.py:330",
     "pfnl_tail": "pfnl_tpu/ops/pallas/pfnl_tail.py:187",
+    "pfrb_bwd_b": "pfnl_tpu/ops/pallas/pfrb_bwd.py:194",
+    "pfrb_bwd_a": "pfnl_tpu/ops/pallas/pfrb_bwd.py:224",
 }
 SOURCE = {
     "nonlocal_flash": "pfnl_tpu_torch/csrc/nonlocal_flash.cu",
     "pfrb_a": "pfnl_tpu_torch/csrc/pfrb.cu",
     "pfrb_b": "pfnl_tpu_torch/csrc/pfrb.cu",
     "pfnl_tail": "pfnl_tpu_torch/csrc/pfnl_tail.cu",
+    "pfrb_bwd_b": "pfnl_tpu_torch/csrc/pfrb_bwd.cu",
+    "pfrb_bwd_a": "pfnl_tpu_torch/csrc/pfrb_bwd.cu",
 }
 
 
@@ -223,7 +246,7 @@ def phase_end_to_end(card):
     peak = torch.cuda.max_memory_allocated()
 
     want = {"nonlocal_flash": 1, "pfrb_a": model.num_blocks, "pfrb_b": model.num_blocks,
-            "pfnl_tail": 1}
+            "pfnl_tail": 1, "pfrb_bwd_b": 0, "pfrb_bwd_a": 0}
     per_batch = {k: counts[k] / n_batches for k in KERNELS}
     print(f"[4 e2e] launches over {n_batches} forward batches: {counts}; per batch {per_batch}",
           flush=True)
@@ -263,6 +286,186 @@ def phase_end_to_end(card):
     return counts
 
 
+def bwd_inputs(shape, dt, gen):
+    """Kernel 5 and 6 inputs at [n,t,h,w,64]: the saved activations of a
+    block with non-zero biases (through the plain forward) and cotangents."""
+    from pfnl_tpu_torch.ops.pfrb_ref import pfrb_a_ref
+
+    n, t, h, w = shape
+    feat = _rand((n, t, h, w, C), gen, 0.5).to(dt)
+    w1 = _glorot((3, 3, C, C), 9 * C, 9 * C, gen)
+    wfuse = _glorot((t, C, C), t * C, C, gen)
+    w2f, w2b = (_glorot((3, 3, C, C), 18 * C, 9 * C, gen) for _ in range(2))
+    b1, bfuse = _rand((C,), gen, 0.1), _rand((C,), gen, 0.1)
+    i1, base = pfrb_a_ref(feat, w1, b1, wfuse, bfuse)
+    dz, g = (_rand((n, t, h, w, C), gen, 0.05).to(dt) for _ in range(2))
+    return {"pfrb_bwd_b": (dz, i1, base, w2f, w2b), "pfrb_bwd_a": (dz, feat, g, w1)}
+
+
+def phase_bwd_kernels(card):
+    """5a: kernels 5 and 6 against their plain versions, bitwise weight
+    gradients over two launches, and their times beside the plain ones."""
+    from pfnl_tpu_torch.ops.cuda.pfrb_bwd import pfrb_bwd_a, pfrb_bwd_b
+    from pfnl_tpu_torch.ops.pfrb_ref import pfrb_bwd_a_ref, pfrb_bwd_b_ref
+
+    fns = {"pfrb_bwd_b": (pfrb_bwd_b, pfrb_bwd_b_ref, 2), "pfrb_bwd_a": (pfrb_bwd_a,
+                                                                        pfrb_bwd_a_ref, 1)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    results = {}
+    for shape in BWD_SHAPES:
+        n, t, h, w = shape
+        # per PFRB backward: 3 frame convs + 1 base conv (data and weight), as 3x3x64x64 MACs
+        flop = {"pfrb_bwd_b": 2.0 * 9 * C * C * (2 * n * t + 2 * n) * h * w,
+                "pfrb_bwd_a": 2.0 * 9 * C * C * 2 * n * t * h * w}
+        for dt in (torch.float32, torch.bfloat16):
+            key = str(dt).replace("torch.", "")
+            inputs = bwd_inputs(shape, dt, gen)
+            for name, (kernel, plain, n_data) in fns.items():
+                args = inputs[name]
+                got, again, ref = kernel(*args), kernel(*args), plain(*args)
+                torch.cuda.synchronize()
+                errs = [_max_errs(a, b) for a, b in zip(got, ref)]
+                abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+                same = all(torch.equal(a, b) for a, b in zip(got[n_data:], again[n_data:]))
+                ok = rel_err <= TOL[key]
+                print(f"[5a kernel] {name} {key} {list(shape)}: max_abs_err {abs_err:.3e}, "
+                      f"max_rel_err {rel_err:.3e} (tolerance {TOL[key]:.0e} of max|plain| per "
+                      f"output) {'ok' if ok else 'DISAGREES'}; weight grads bitwise equal over "
+                      f"two launches: {same}", flush=True)
+                if not ok:
+                    fail(f"{name} {key} {shape} disagrees with its plain version")
+                if not same:
+                    fail(f"{name} {key} {shape}: weight gradients differ between two launches")
+                p1 = cuda_time_ms(lambda: plain(*args))
+                k1 = cuda_time_ms(lambda: kernel(*args))
+                k2 = cuda_time_ms(lambda: kernel(*args))
+                p2 = cuda_time_ms(lambda: plain(*args))
+                ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                f = flop[name]
+                print(f"[5a time] {name} {key} {list(shape)}: kernel {ms:.3f} ms "
+                      f"({f / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms "
+                      f"({f / plain_ms / 1e9:.2f} TFLOP/s) on {card}", flush=True)
+                if shape == BWD_SHAPES[0] and dt == torch.float32:
+                    results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return results
+
+
+def paper_model(gen_seed):
+    """Full-width PFNL (mf 64, 20 PFRBs, 7 frames, x4), float32, seeded
+    weights with non-zero biases, on the card."""
+    from pfnl_tpu_torch.models.pfnl import PFNL
+
+    model = PFNL(generator=torch.Generator().manual_seed(gen_seed))
+    gen = torch.Generator().manual_seed(gen_seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return model.cuda()
+
+
+def phase_train_gradients(card):
+    """5b: one fixed batch; every gradient through kernels 2-6 against pure
+    autograd on the plain path."""
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.losses import pfnl_loss
+
+    model = paper_model(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    x = torch.rand((TRAIN_B, T, TRAIN_HW, TRAIN_HW, 3), generator=gen, device="cuda")
+    gt = torch.rand((TRAIN_B, 1, 4 * TRAIN_HW, 4 * TRAIN_HW, 3), generator=gen, device="cuda")
+    res = {}
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss = pfnl_loss({"sr": model(x, plain=plain)}, gt, x)["loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        res[plain] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()},
+                      {k: launches[k] for k in KERNELS})
+    print(f"[5b grads] launches, kernel path: {res[False][2]}; plain path: {res[True][2]}",
+          flush=True)
+    if sum(res[True][2].values()) or not all(res[False][2][k] for k in KERNELS[1:]):
+        fail("the kernel path must launch kernels 2-6 and the plain path none")
+    rel = {k: ((res[False][1][k] - g).norm() / g.norm()).item() for k, g in res[True][1].items()}
+    worst = max(rel, key=rel.get)
+    loss_k, loss_p = res[False][0], res[True][0]
+    print(f"[5b grads] batch {TRAIN_B}, LR {TRAIN_HW}x{TRAIN_HW}, float32: loss kernels "
+          f"{loss_k:.7f}, plain {loss_p:.7f}; worst ||g_k - g_p|| / ||g_p|| over "
+          f"{len(rel)} parameters {rel[worst]:.3e} ({worst}; tolerance {GRAD_TOL:.0e}), median "
+          f"{float(np.median(list(rel.values()))):.3e} on {card}", flush=True)
+    if rel[worst] > GRAD_TOL or abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
+        fail("the kernel path's gradients disagree with the plain path's")
+
+
+def phase_train_fit(card):
+    """5c: Trainer.fit at the paper config over seeded in-memory clips."""
+    from pfnl_tpu_torch.config import preset
+    from pfnl_tpu_torch.data.frames import MemoryFrames
+    from pfnl_tpu_torch.data.manifest import Sequence
+    from pfnl_tpu_torch.data.pipeline import TrainPipeline
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    frames, seqs = {}, []
+    for s in range(4):
+        clip = synthetic_clip(12, 256, 256, SEED + 10 + s)
+        truth = [f"train/seq{s}/truth/{i:04d}.png" for i in range(len(clip))]
+        frames.update(zip(truth, clip))
+        seqs.append(Sequence(path=f"train/seq{s}", truth=truth, blur=[]))
+    mem = MemoryFrames(frames)
+    # save_every below is past the run, so nothing is written to save_dir
+    cfg = preset("pfnl", reload=False, save_dir="pfnl_tpu_torch/build/smoke_ckpt")
+    out = {}
+    for plain in (False, True):
+        tr = Trainer(cfg, model=paper_model(SEED), device="cuda", plain=plain)
+        pipe = TrainPipeline(seqs, cfg.producer, cfg.num_frames, cfg.in_size, cfg.scale,
+                             cfg.batch_size, seed=cfg.seed, num_threads=cfg.host_threads,
+                             prefetch=cfg.prefetch, source=mem)
+        logged = []
+
+        def log(line):
+            logged.append(line)
+            print(f"[5c fit] {line}", flush=True)
+
+        try:
+            tr.fit(pipe, max_steps=FIT_WARM, save_every=10**9, log_every=10**9, print_fn=log)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            tr.fit(pipe, max_steps=FIT_WARM + FIT_STEPS, save_every=10**9, log_every=5,
+                   print_fn=log)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pipe.close()
+        counts = {k: launches[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(line.rsplit("loss:", 1)[1]) for line in logged if "loss:" in line]
+        finite = all(np.isfinite(losses)) and all(torch.isfinite(p).all()
+                                                 for p in tr.model.parameters())
+        path = "plain" if plain else "kernels"
+        print(f"[5c fit] {path}: {FIT_STEPS} steps after {FIT_WARM} in {wall:.3f} s: steady "
+              f"{FIT_STEPS / wall:.3f} steps/s ({TRAIN_B * FIT_STEPS / wall:.1f} clips/s); "
+              f"peak memory {peak / 2**30:.2f} GiB; losses {losses}; launches per step "
+              f"{ {k: v / FIT_STEPS for k, v in counts.items()} } on {card}", flush=True)
+        if not finite or not losses:
+            fail(f"{path}: non-finite or missing losses {losses}")
+        want = {k: 0 for k in KERNELS} if plain else {
+            "nonlocal_flash": 0, "pfrb_a": 20, "pfrb_b": 20, "pfnl_tail": 1, "pfrb_bwd_b": 20,
+            "pfrb_bwd_a": 20}
+        if any(counts[k] != want[k] * FIT_STEPS for k in KERNELS):
+            fail(f"{path}: launch counts {counts} != {want} x {FIT_STEPS} steps")
+        out[path] = dict(counts=counts, steps_per_s=FIT_STEPS / wall, peak=peak)
+        del tr
+        torch.cuda.empty_cache()
+    print(f"[5c fit] steady steps/s: kernels {out['kernels']['steps_per_s']:.3f}, plain "
+          f"{out['plain']['steps_per_s']:.3f} (batch {TRAIN_B}, LR {TRAIN_HW}x{TRAIN_HW}, "
+          f"float32, TF32 off) on {card}", flush=True)
+    return out["kernels"]["counts"]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -276,6 +479,9 @@ def main():
     phase_build()
     results = phase_kernels(name)
     counts = phase_end_to_end(name)
+    results.update(phase_bwd_kernels(name))
+    phase_train_gradients(name)
+    train_counts = phase_train_fit(name)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
@@ -283,7 +489,7 @@ def main():
         fail(f"the port loaded JAX-side modules: {leaked[:5]}")
 
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],
-                    launches=counts[k], max_abs_err=results[k]["max_abs_err"],
+                    launches=counts[k] + train_counts[k], max_abs_err=results[k]["max_abs_err"],
                     ms=results[k]["ms"], plain_ms=results[k]["plain_ms"])
                for k in TPU_KERNEL]
     print(json.dumps({"kernels": kernels}))

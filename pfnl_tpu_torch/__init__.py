@@ -3,30 +3,28 @@
 The package sits beside the JAX package `pfnl_tpu`, which stays the
 reference it is tested against, and mirrors its layout:
 
-  ops/       tensor ops (shuffle, resize, degrade, non-local attention) and
-             the plain PyTorch versions of the PFRB chain and merge tail
+  config.py  Config and the reference's presets (a copy of pfnl_tpu.config)
+  ops/       tensor ops (shuffle, resize, degrade, non-local attention,
+             losses), the plain PyTorch versions of the PFRB chain, its
+             backward and the merge tail, and the chain under autograd
   ops/cuda/  wrappers of the hand-written CUDA kernels (sources in csrc/),
              built with nvcc on first use into build/
   models/    NonLocalBlock and PFNL as nn.Modules
   utils/     the flax-params <-> state_dict weight bridge
-  data/      dataset-directory scanning
+  data/      manifests, frame stores, the training input pipeline
+  train/     losses and the Trainer
+  eval/      periodic validation (PSNR)
   infer/     the testvideos() inference API
 
-It imports torch and never jax.  Activations keep the JAX package's
-channels-last layouts ([N,T,H,W,C], [B,N,D]) at public functions, and conv
-kernels keep flax's HWIO layout, so the two packages compare like with like.
-
-`Config` and `preset` are the JAX package's own (`pfnl_tpu.config` is plain
-dataclasses and imports no jax); they load on first access, so importing
-this package loads nothing of `pfnl_tpu`.
+It imports torch and never jax, and loads nothing of `pfnl_tpu` (PNG
+frames go through `pfnl_tpu.utils.image_io`, jax-free, on first use).
+Activations keep the JAX package's channels-last layouts ([N,T,H,W,C],
+[B,N,D]) at public functions, and conv kernels keep flax's HWIO layout, so
+the two packages compare like with like.
 """
+
+from pfnl_tpu_torch.config import Config, preset
 
 __version__ = "0.1.0"
 
-
-def __getattr__(name):
-    if name in ("Config", "preset"):
-        from pfnl_tpu import config
-
-        return getattr(config, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["Config", "preset"]

@@ -1,15 +1,28 @@
-"""Command line of the port — counterpart of `run.py test`:
+"""Command line of the port — counterpart of `run.py test` and `run.py train`:
 
     python -m pfnl_tpu_torch test pfnl --data DIR [--weights params.npz]
         [--compute-dtype bfloat16] [--device cuda] [--start 0] [--name NAME]
+    python -m pfnl_tpu_torch train pfnl --train-list F [--eval-list F]
+        [--steps N] [--in-size 32] [--batch-size 16] [--save-dir D]
+        [--save-every 500] [--compute-dtype float32|bfloat16] [--no-eval]
+        [--device cuda]
 
-Super-resolves every sequence of a dataset directory (`DIR/<seq>/truth/*.png`
-degraded on the device) into `DIR/<seq>/<NAME>/*.png`.  `--weights` is a
-flat `.npz` of '/'-joined flax parameter paths; without it the weights are
-random, drawn from `--seed`.
+`test` super-resolves every sequence of a dataset directory
+(`DIR/<seq>/truth/*.png` degraded on the device) into
+`DIR/<seq>/<NAME>/*.png`.  `--weights` is a flat `.npz` of '/'-joined flax
+parameter paths; without it the weights are random, drawn from `--seed`.
+
+`train` trains from the sequences of a filelist (the paper config by
+default: batch 16, LR crop 32, 7 frames, float32), saving checkpoints and
+the eval log (`pfnl.txt`) under `--save-dir`, and resuming from its newest
+checkpoint.
+
+The device is `cuda` unless `--device` names another: a machine whose CUDA
+fails runs nothing rather than falling back to the CPU.
 """
 
 import argparse
+import os
 import sys
 
 import torch
@@ -23,16 +36,28 @@ def _parser():
     t.add_argument("--data", required=True, help="dataset dir: <seq>/truth/*.png")
     t.add_argument("--weights", default=None, help="flat .npz of flax params")
     t.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
-    t.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    t.add_argument("--device", default="cuda")
     t.add_argument("--start", type=int, default=0, help="first sequence index")
     t.add_argument("--name", default=None, help="output subdirectory (default: model)")
     t.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+
+    r = sub.add_parser("train", help="train from a filelist of sequence dirs")
+    r.add_argument("model", choices=["pfnl"])
+    r.add_argument("--train-list", default=None)
+    r.add_argument("--eval-list", default=None)
+    r.add_argument("--steps", type=int, default=None, help="last global step (default: preset)")
+    r.add_argument("--in-size", type=int, default=None, help="LR crop (GT crop x4)")
+    r.add_argument("--batch-size", type=int, default=None)
+    r.add_argument("--save-dir", default=None)
+    r.add_argument("--save-every", type=int, default=500)
+    r.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"])
+    r.add_argument("--no-eval", action="store_true")
+    r.add_argument("--device", default="cuda")
     return p
 
 
-def main(argv=None):
-    args = _parser().parse_args(argv)
-    from pfnl_tpu.config import preset
+def cmd_test(args):
+    from pfnl_tpu_torch.config import preset
     from pfnl_tpu_torch.infer.predictor import Predictor
     from pfnl_tpu_torch.models.pfnl import PFNL
     from pfnl_tpu_torch.utils.weights import load_npz
@@ -45,6 +70,43 @@ def main(argv=None):
         model.load_state_dict(load_npz(args.weights))
     model.to(args.device).eval()
     Predictor(model).testvideos(args.data, start=args.start, name=args.name or cfg.model)
+
+
+def cmd_train(args):
+    """run.py cmd_train (:60-120) without the multi-host flags."""
+    from pfnl_tpu_torch.config import preset
+    from pfnl_tpu_torch.data.manifest import load_manifest
+    from pfnl_tpu_torch.data.pipeline import TrainPipeline
+    from pfnl_tpu_torch.eval.evaluator import Evaluator
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    over = {k: v for k, v in (("train_list", args.train_list), ("eval_list", args.eval_list),
+                              ("in_size", args.in_size), ("batch_size", args.batch_size),
+                              ("save_dir", args.save_dir),
+                              ("compute_dtype", args.compute_dtype)) if v is not None}
+    cfg = preset(args.model, **over)
+    cfg.log_path = os.path.join(cfg.save_dir, f"{cfg.model}.txt")
+    tr = Trainer(cfg, device=args.device)
+    seqs = load_manifest(cfg.train_list, cfg.scale, need_blur=cfg.producer != "single")
+    pipe = TrainPipeline(seqs, cfg.producer, cfg.num_frames, cfg.in_size, cfg.scale,
+                         cfg.batch_size, seed=cfg.seed, num_threads=cfg.host_threads,
+                         prefetch=cfg.prefetch)
+    eval_fn = None
+    if not args.no_eval:
+        ev = Evaluator(cfg, tr.model)
+
+        def eval_fn(trainer, step):
+            ev.run(step, log_path=cfg.log_path)
+
+    try:
+        tr.fit(pipe, max_steps=args.steps, eval_fn=eval_fn, save_every=args.save_every)
+    finally:
+        pipe.close()
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    {"test": cmd_test, "train": cmd_train}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""Dataset helpers of the port."""
+"""Dataset helpers of the port: manifests, frame stores, the training pipeline."""

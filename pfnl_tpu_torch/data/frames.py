@@ -1,0 +1,51 @@
+"""Frame stores: where the port reads frames from and writes them to.
+
+`PngFrames` (the default) is PNG files on disk through
+pfnl_tpu.utils.image_io (cv2 or PIL, imported on first use).
+`MemoryFrames` holds uint8 [H,W,3] frames in a dict keyed by path, for
+machines without a PNG codec.  Both offer list(directory), read(path) and
+write(path, img).
+"""
+
+import glob
+import os
+
+import numpy as np
+
+
+class PngFrames:
+    """PNG frames on disk, through pfnl_tpu.utils.image_io."""
+
+    @staticmethod
+    def list(directory: str):
+        return sorted(glob.glob(os.path.join(directory, "*.png")))
+
+    @staticmethod
+    def read(path: str) -> np.ndarray:
+        from pfnl_tpu.utils.image_io import imread
+
+        return imread(path)
+
+    @staticmethod
+    def write(path: str, img: np.ndarray) -> None:
+        from pfnl_tpu.utils.image_io import imsave
+
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        imsave(path, img)
+
+
+class MemoryFrames:
+    """uint8 [H,W,3] frames in a dict keyed by path."""
+
+    def __init__(self, frames=None):
+        self.frames = dict(frames or {})
+
+    def list(self, directory: str):
+        return sorted(p for p in self.frames
+                      if os.path.dirname(p) == directory and p.endswith(".png"))
+
+    def read(self, path: str) -> np.ndarray:
+        return self.frames[path]
+
+    def write(self, path: str, img: np.ndarray) -> None:
+        self.frames[path] = img

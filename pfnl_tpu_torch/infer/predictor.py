@@ -9,59 +9,21 @@ window-batched PFNL family, with the reference's public surface:
   * testvideos(path, start, name): every sequence of a dataset directory
     (model/pfnl.py:322-332).
 
-Frames are read through `source` and written through `sink`, by default
-PNG files on disk through pfnl_tpu.utils.image_io (cv2 or PIL, imported
-on first use).  `MemoryFrames` holds them in a dict instead, for machines
-without a PNG codec.
+Frames are read through `source` and written through `sink`, frame stores
+of data/frames.py: by default `PngFrames`, PNG files on disk;
+`MemoryFrames` holds them in a dict instead, for machines without a PNG
+codec.
 """
 
-import glob
 import os
 import time
 
 import numpy as np
 import torch
 
+from pfnl_tpu_torch.data.frames import MemoryFrames, PngFrames  # noqa: F401  (public here too)
 from pfnl_tpu_torch.data.manifest import scan_dataset_dir
 from pfnl_tpu_torch.ops.degrade import downsample_4d
-
-
-class PngFrames:
-    """PNG frames on disk, through pfnl_tpu.utils.image_io."""
-
-    @staticmethod
-    def list(directory: str):
-        return sorted(glob.glob(os.path.join(directory, "*.png")))
-
-    @staticmethod
-    def read(path: str) -> np.ndarray:
-        from pfnl_tpu.utils.image_io import imread
-
-        return imread(path)
-
-    @staticmethod
-    def write(path: str, img: np.ndarray) -> None:
-        from pfnl_tpu.utils.image_io import imsave
-
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        imsave(path, img)
-
-
-class MemoryFrames:
-    """uint8 [H,W,3] frames in a dict keyed by path."""
-
-    def __init__(self, frames=None):
-        self.frames = dict(frames or {})
-
-    def list(self, directory: str):
-        return sorted(p for p in self.frames
-                      if os.path.dirname(p) == directory and p.endswith(".png"))
-
-    def read(self, path: str) -> np.ndarray:
-        return self.frames[path]
-
-    def write(self, path: str, img: np.ndarray) -> None:
-        self.frames[path] = img
 
 
 def to_uint8_img(x: np.ndarray) -> np.ndarray:

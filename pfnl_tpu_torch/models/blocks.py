@@ -57,8 +57,11 @@ class NonLocalBlock(nn.Module):
     theta = phi = input, `g` and `w` are 1x1 convs with bias.  Returns
     w(y) WITHOUT the residual; the caller adds it.
 
-    Attention: kernel 1 on a CUDA tensor; on the CPU (or with plain=True)
-    dense up to DENSE_POSITION_LIMIT positions and streaming above."""
+    Attention (pfnl_tpu blocks.py:110-116): dense up to
+    DENSE_POSITION_LIMIT positions (the training crops); above it kernel 1
+    on a CUDA tensor, and streaming on the CPU or with plain=True.  Kernel
+    1 has no backward, in either package: asking it for a gradient
+    raises NotImplementedError."""
 
     def __init__(self, channels: int, generator=None):
         super().__init__()
@@ -69,10 +72,14 @@ class NonLocalBlock(nn.Module):
         n, h, w, c = x.shape
         gf = self.g(x).reshape(n, h * w, c).contiguous()
         xf = x.reshape(n, h * w, c).contiguous()
-        if x.is_cuda and not plain:
-            y = nonlocal_flash(xf, xf, gf)
-        elif h * w <= DENSE_POSITION_LIMIT:
+        if h * w <= DENSE_POSITION_LIMIT:
             y = nonlocal_attention(xf, xf, gf)
+        elif x.is_cuda and not plain:
+            if torch.is_grad_enabled() and (gf.requires_grad or xf.requires_grad):
+                raise NotImplementedError(
+                    f"no backward for kernel 1 (nonlocal_flash) at {h * w} positions, above "
+                    f"the dense limit {DENSE_POSITION_LIMIT}; train at smaller crops")
+            y = nonlocal_flash(xf, xf, gf)
         else:
             y = nonlocal_attention_chunked(xf, xf, gf)
         return self.w(y.reshape(n, h, w, c))

@@ -5,7 +5,7 @@ Correlations (ICCV 2019) — counterpart of pfnl_tpu/models/pfnl.py.
     -> frames concat [N,h,w,3T] -> space_to_depth(2) -> NonLocalBlock
        -> depth_to_space(2) -> residual add
     -> shared 5x5 conv0 per frame (+lrelu)                [N,T,h,w,64]
-    -> num_blocks x PFRB                    (kernels 2 and 3 on the GPU)
+    -> num_blocks x PFRB      (kernels 2 and 3 on the GPU; 5 and 6 backward)
     -> merge tail on the LR grid -> [N,h,w,48]       (kernel 4 on the GPU)
     -> compose_d2s4 -> [N,4h,4w,3] -> + bicubic(centre frame)
     -> [N,1,4h,4w,3] float32
@@ -21,10 +21,10 @@ import torch
 from torch import nn
 
 from pfnl_tpu_torch.models.blocks import ConvParams, NonLocalBlock, conv_glorot, glorot_uniform
-from pfnl_tpu_torch.ops.cuda.pfnl_tail import pfnl_tail
-from pfnl_tpu_torch.ops.cuda.pfrb import pfrb_block
+from pfnl_tpu_torch.ops.cuda.pfnl_tail import merge_tail
+from pfnl_tpu_torch.ops.pfrb_chain import pfrb_chain
 from pfnl_tpu_torch.ops.pfrb_ref import (compose_d2s4, conv_same, leaky_relu, pfnl_tail_ref,
-                                         pfrb_block_ref)
+                                         pfrb_chain_ref)
 from pfnl_tpu_torch.ops.resize import resize_bicubic
 from pfnl_tpu_torch.ops.shuffle import depth_to_space, space_to_depth
 
@@ -74,14 +74,16 @@ class PFNL(nn.Module):
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x [N,T,h,w,3] -> SR [N,1,4h,4w,3] float32.  On a CUDA tensor the
-        attention, the PFRBs and the tail run the port's kernels, unless
-        plain=True asks for their plain PyTorch versions (the reference the
-        kernels are checked against on the card)."""
+        attention (above the dense limit), the PFRBs and the tail run the
+        port's kernels, and a backward runs kernels 5 and 6, unless
+        plain=True asks for their plain PyTorch versions under plain
+        autograd (the reference the kernels are checked against on the
+        card)."""
         n, t, h, w, c = x.shape
         if t != self.num_frames:
             raise ValueError(f"expected {self.num_frames} frames, got {t}")
         dt, mf = self.dtype, self.mf
-        run_block, run_tail = (pfrb_block_ref, pfnl_tail_ref) if plain else (pfrb_block, pfnl_tail)
+        run_chain, run_tail = (pfrb_chain_ref, pfnl_tail_ref) if plain else (pfrb_chain, merge_tail)
         xc = x.to(dt)
 
         # non-local residual over the frame-concat image
@@ -94,8 +96,7 @@ class PFNL(nn.Module):
         feat = leaky_relu(conv_same(frames, self.conv0.kernel) + self.conv0.bias.to(dt))
         feat = feat.reshape(n, t, h, w, mf).contiguous()
 
-        for i in range(self.num_blocks):
-            feat = run_block(feat, *self.block_params(i))
+        feat = run_chain(feat, [self.block_params(i) for i in range(self.num_blocks)])
 
         folded = run_tail(feat, self.convmerge1_kernel, self.convmerge1_bias,
                           self.convmerge2_kernel, self.convmerge2_bias)

@@ -2,16 +2,21 @@
 
 Each wrapper runs its plain PyTorch version on a CPU tensor and launches
 its kernel on a CUDA tensor (or raises); there is no fallback from one to
-the other.  `launches` counts kernel launches by name:
+the other.  A kernel records no autograd graph, so on a CUDA tensor a
+wrapper raises when grad is enabled and an input requires it; training
+reaches kernels 2-6 through ops/pfrb_chain.py and `merge_tail`.
+`launches` counts kernel launches by name:
 
   nonlocal_flash  kernel 1  ops/cuda/nonlocal_flash.py  csrc/nonlocal_flash.cu
   pfrb_a          kernel 2  ops/cuda/pfrb.py            csrc/pfrb.cu
   pfrb_b          kernel 3  ops/cuda/pfrb.py            csrc/pfrb.cu
   pfnl_tail       kernel 4  ops/cuda/pfnl_tail.py       csrc/pfnl_tail.cu
+  pfrb_bwd_b      kernel 5  ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
+  pfrb_bwd_a      kernel 6  ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
 """
 
 from pfnl_tpu_torch.ops.cuda._build import launches, reset_launches
 
-KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail")
+KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a")
 
 __all__ = ["KERNELS", "launches", "reset_launches"]

@@ -97,6 +97,13 @@ def _library():
     return _lib
 
 
+def constant(name: str) -> int:
+    """The int returned by the library's no-argument C entry `name`."""
+    fn = getattr(_library(), name)
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def call(name: str, *args):
     """Call C entry `name` with device pointers and ints as given, then
     the current stream of the first tensor's device, with that device
@@ -140,7 +147,21 @@ def check_cuda_inputs(name: str, *tensors):
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def check_no_grad(name: str, *tensors):
+    """A kernel writes its outputs through raw pointers, outside autograd's
+    graph.  Raise rather than cut the graph without saying so when grad
+    is enabled and any input or parameter requires it; gradients reach the
+    kernels only through ops/pfrb_chain.py and the tail's Function, whose
+    forward runs with grad disabled."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: a CUDA kernel records no autograd graph, and an input requires grad; "
+            "call it under torch.no_grad()/torch.inference_mode(), or train through "
+            "pfrb_chain / merge_tail")
+
+
 def weight_f32(w: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
     """A parameter rounded to the activation dtype (as the plain version
-    casts it at use), then held as contiguous float32 for the kernel."""
+    casts it at use), then held as contiguous float32 for the kernel.
+    Callers have passed check_no_grad, so no graph is lost here."""
     return w.detach().to(device=device, dtype=dtype).float().contiguous()

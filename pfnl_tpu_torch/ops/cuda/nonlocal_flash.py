@@ -18,6 +18,7 @@ def nonlocal_flash(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor) -> t
     if theta.device.type == "cpu":
         return nonlocal_attention_chunked(theta, phi, g)
     _build.check_cuda_inputs("nonlocal_flash", theta, phi, g)
+    _build.check_no_grad("nonlocal_flash", theta, phi, g)
     if not theta.dtype == phi.dtype == g.dtype:
         raise TypeError(f"nonlocal_flash: mixed dtypes {theta.dtype}, {phi.dtype}, {g.dtype}")
     sfx = _build.suffix(g.dtype)

@@ -2,7 +2,9 @@
 
 Counterpart of `pfnl_tail_pack` in pfnl_tpu/ops/pallas/pfnl_tail.py; the
 plain version is `pfnl_tail_ref` (ops/pfrb_ref.py).  `compose_d2s4` and
-the bicubic add stay in PyTorch.
+the bicubic add stay in PyTorch.  `merge_tail` is the autograd-aware
+entry the model calls (MergeTail: kernel forward, plain recompute
+backward).
 """
 
 import torch
@@ -18,6 +20,7 @@ def pfnl_tail(feat5, wm1, bm1, km2, bm2):
     if feat5.device.type == "cpu":
         return pfnl_tail_ref(feat5, wm1, bm1, km2, bm2)
     _build.check_cuda_inputs("pfnl_tail", feat5)
+    _build.check_no_grad("pfnl_tail", feat5, wm1, bm1, km2, bm2)
     if feat5.dim() != 5 or feat5.shape[-1] != CHANNELS:
         raise ValueError(f"pfnl_tail: feat must be [N,T,H,W,{CHANNELS}], "
                          f"got {tuple(feat5.shape)}")
@@ -36,3 +39,32 @@ def pfnl_tail(feat5, wm1, bm1, km2, bm2):
     _build.call(f"pfnl_tail_{sfx}", feat5, wm1f, bm1f, wf, bf, m, out, n, t, h, w)
     _build.launches["pfnl_tail"] += 1
     return out
+
+
+class MergeTail(torch.autograd.Function):
+    """Kernel 4 forward; the backward recomputes the plain tail and takes
+    its vjp.  Counterpart of `blocks_and_tail_pack`'s tail half
+    (pfnl_tail.py `_bt_fwd` / `_bt_bwd`), which re-runs `_xla_tail_only`:
+    the TPU package has no tail backward kernel either."""
+
+    @staticmethod
+    def forward(ctx, feat5, wm1, bm1, km2, bm2):
+        ctx.save_for_backward(feat5, wm1, bm1, km2, bm2)
+        return pfnl_tail(feat5, wm1, bm1, km2, bm2)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = pfnl_tail_ref(*inputs)
+        return torch.autograd.grad(out, inputs, g)
+
+
+def merge_tail(feat5, wm1, bm1, km2, bm2):
+    """The tail as PFNL calls it: `pfnl_tail`, through MergeTail when a
+    gradient is wanted."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (feat5, wm1, bm1, km2, bm2)):
+        return MergeTail.apply(feat5, wm1, bm1, km2, bm2)
+    return pfnl_tail(feat5, wm1, bm1, km2, bm2)

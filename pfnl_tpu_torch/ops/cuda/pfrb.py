@@ -24,6 +24,7 @@ def pfrb_a(feat, w1, b1, wfuse, bfuse):
     if feat.device.type == "cpu":
         return pfrb_a_ref(feat, w1, b1, wfuse, bfuse)
     _build.check_cuda_inputs("pfrb_a", feat)
+    _build.check_no_grad("pfrb_a", feat, w1, b1, wfuse, bfuse)
     _check_feat("pfrb_a", feat)
     n, t, h, w, c = feat.shape
     if tuple(w1.shape) != (3, 3, c, c) or tuple(wfuse.shape) != (t, c, c):
@@ -45,6 +46,7 @@ def pfrb_b(feat, i1, base, w2f, w2b, b2):
     if feat.device.type == "cpu":
         return pfrb_b_ref(feat, i1, base, w2f, w2b, b2)
     _build.check_cuda_inputs("pfrb_b", feat, i1, base)
+    _build.check_no_grad("pfrb_b", feat, i1, base, w2f, w2b, b2)
     _check_feat("pfrb_b", feat)
     n, t, h, w, c = feat.shape
     if i1.shape != feat.shape or tuple(base.shape) != (n, h, w, c):

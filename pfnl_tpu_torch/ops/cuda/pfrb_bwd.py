@@ -1,0 +1,98 @@
+"""Kernels 5 and 6: the backward of the two halves of a PFRB
+(csrc/pfrb_bwd.cu).
+
+Counterparts of `_kernel_bwd_b` / `_kernel_bwd_a` in
+pfnl_tpu/ops/pallas/pfrb_bwd.py; the plain versions are `pfrb_bwd_b_ref`
+and `pfrb_bwd_a_ref` (ops/pfrb_ref.py).  Activations and their
+cotangents are contiguous [N,T,H,W,64] float32 or bfloat16; kernels are
+HWIO.  Data gradients come out in the activation dtype, weight and bias
+gradients in float32, summed in a fixed order (bitwise reproducible).
+"""
+
+import torch
+
+from pfnl_tpu_torch.ops.cuda import _build
+from pfnl_tpu_torch.ops.cuda.pfrb import CHANNELS, _check_feat
+from pfnl_tpu_torch.ops.pfrb_ref import mirror_t, pfrb_bwd_a_ref, pfrb_bwd_b_ref
+
+_KERNEL_ENTRIES = 9 * CHANNELS * CHANNELS  # dW [3,3,64,64], then db [64]
+
+
+def _grad_buffers(device):
+    """(scratch of the per-range partial sums, sizes) as pfrb_bwd.cu has them."""
+    entries = _build.constant("pfnl_wgrad_entries")
+    if entries != _KERNEL_ENTRIES + CHANNELS:
+        raise RuntimeError(f"pfrb_bwd.cu reduces {entries} entries, expected "
+                           f"{_KERNEL_ENTRIES + CHANNELS}")
+    part = torch.empty(_build.constant("pfnl_wgrad_scratch_floats"), dtype=torch.float32,
+                       device=device)
+    return part, entries
+
+
+def _split(buf):
+    c = CHANNELS
+    return buf[:_KERNEL_ENTRIES].view(3, 3, c, c), buf[_KERNEL_ENTRIES:]
+
+
+def _check_kernel(name, w, c):
+    if tuple(w.shape) != (3, 3, c, c):
+        raise ValueError(f"{name}: conv kernels must be [3,3,{c},{c}], got {tuple(w.shape)}")
+
+
+def pfrb_bwd_b(dz2, i1, base, w2f, w2b):
+    """Kernel 5: dz2 [N,T,H,W,64] -> (d_i1 [N,T,H,W,64], d_base [N,H,W,64],
+    dW2f, dW2b [3,3,64,64] float32, db2 [64] float32)."""
+    if dz2.device.type == "cpu":
+        return pfrb_bwd_b_ref(dz2, i1, base, w2f, w2b)
+    _build.check_cuda_inputs("pfrb_bwd_b", dz2, i1, base)
+    _build.check_no_grad("pfrb_bwd_b", dz2, i1, base, w2f, w2b)
+    _check_feat("pfrb_bwd_b", dz2)
+    n, t, h, w, c = dz2.shape
+    if i1.shape != dz2.shape or tuple(base.shape) != (n, h, w, c):
+        raise ValueError(f"pfrb_bwd_b: i1 {tuple(i1.shape)} / base {tuple(base.shape)} "
+                         f"do not fit dz2 {tuple(dz2.shape)}")
+    if not dz2.dtype == i1.dtype == base.dtype:
+        raise TypeError("pfrb_bwd_b: dz2, i1 and base must share a dtype")
+    _check_kernel("pfrb_bwd_b", w2f, c)
+    _check_kernel("pfrb_bwd_b", w2b, c)
+    dt, dev = dz2.dtype, dz2.device
+    sfx = _build.suffix(dt)
+    w2ft, w2bt = (_build.weight_f32(mirror_t(p), dt, dev) for p in (w2f, w2b))
+    part, entries = _grad_buffers(dev)
+    d_i1 = torch.empty_like(dz2)
+    dzsum = torch.empty(n, h, w, c, dtype=dt, device=dev)
+    d_base = torch.empty_like(dzsum)
+    gw2f = torch.empty(entries, dtype=torch.float32, device=dev)
+    gw2b = torch.empty_like(gw2f)
+    _build.call(f"pfnl_pfrb_bwd_b_{sfx}", dz2, i1, base, w2ft, w2bt, d_i1, dzsum, d_base, part,
+                gw2f, gw2b, n, t, h, w)
+    _build.launches["pfrb_bwd_b"] += 1
+    dw2f, db2 = _split(gw2f)
+    return d_i1, d_base, dw2f, _split(gw2b)[0], db2
+
+
+def pfrb_bwd_a(dz1, feat, g, w1):
+    """Kernel 6: dz1 [N,T,H,W,64] -> (d_feat = g + convT(dz1, W1)
+    [N,T,H,W,64], dW1 [3,3,64,64] float32, db1 [64] float32)."""
+    if dz1.device.type == "cpu":
+        return pfrb_bwd_a_ref(dz1, feat, g, w1)
+    _build.check_cuda_inputs("pfrb_bwd_a", dz1, feat, g)
+    _build.check_no_grad("pfrb_bwd_a", dz1, feat, g, w1)
+    _check_feat("pfrb_bwd_a", dz1)
+    if feat.shape != dz1.shape or g.shape != dz1.shape:
+        raise ValueError(f"pfrb_bwd_a: feat {tuple(feat.shape)} / g {tuple(g.shape)} "
+                         f"do not fit dz1 {tuple(dz1.shape)}")
+    if not dz1.dtype == feat.dtype == g.dtype:
+        raise TypeError("pfrb_bwd_a: dz1, feat and g must share a dtype")
+    n, t, h, w, c = dz1.shape
+    _check_kernel("pfrb_bwd_a", w1, c)
+    dt, dev = dz1.dtype, dz1.device
+    w1t = _build.weight_f32(mirror_t(w1), dt, dev)
+    part, entries = _grad_buffers(dev)
+    d_feat = torch.empty_like(dz1)
+    gw1 = torch.empty(entries, dtype=torch.float32, device=dev)
+    _build.call(f"pfnl_pfrb_bwd_a_{_build.suffix(dt)}", dz1, feat, g, w1t, d_feat, part, gw1,
+                n, t, h, w)
+    _build.launches["pfrb_bwd_a"] += 1
+    dw1, db1 = _split(gw1)
+    return d_feat, dw1, db1

@@ -34,3 +34,10 @@ def downsample_4d(x: torch.Tensor, scale: int = 4) -> torch.Tensor:
     wgt = k.to(device=x.device, dtype=x.dtype)[None, None].expand(c, 1, kh, kh)
     y = F.conv2d(y, wgt, stride=scale, groups=c)
     return y.permute(0, 2, 3, 1)
+
+
+def downsample(x: torch.Tensor, scale: int = 4) -> torch.Tensor:
+    """[N,T,H,W,C] variant: folds T into the batch (reference utils.py:142-167)."""
+    n, t, h, w, c = x.shape
+    y = downsample_4d(x.reshape(n * t, h, w, c), scale)
+    return y.reshape(n, t, y.shape[1], y.shape[2], c)

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the PFRB chain (kernels 2 and 3) and of the
-PFNL merge tail (kernel 4).  Counterparts: pfnl_tpu/ops/pallas/pfrb_xla.py
-and `_xla_tail_only` / `compose_d2s4` / `_fold_d2s_conv` in
-pfnl_tpu/ops/pallas/pfnl_tail.py.
+"""Plain PyTorch versions of the PFRB chain (kernels 2 and 3), of its
+backward (kernels 5 and 6) and of the PFNL merge tail (kernel 4).
+Counterparts: pfnl_tpu/ops/pallas/pfrb_xla.py, `_chain_manual_bwd` in
+pfnl_tpu/ops/pallas/pfrb_pack.py, and `_xla_tail_only` / `compose_d2s4` /
+`_fold_d2s_conv` in pfnl_tpu/ops/pallas/pfnl_tail.py.
 
 One PFRB, per sample (T frames, C = 64 channels, HWIO kernels):
 
@@ -59,6 +60,68 @@ def pfrb_chain_ref(feat, params_list):
     for p in params_list:
         feat = pfrb_block_ref(feat, *p)
     return feat
+
+
+def acc_dtype(x: torch.Tensor) -> torch.Tensor:
+    """x widened to at least float32, the type sums and weight gradients
+    accumulate in (float64 stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def mirror_t(k: torch.Tensor) -> torch.Tensor:
+    """[3,3,Ci,Co] -> [3,3,Co,Ci]: the kernel whose SAME conv is the
+    transposed conv of k (pfnl_tpu pfrb_bwd.py `mirror_t`)."""
+    return k.flip(0, 1).transpose(2, 3)
+
+
+def conv_w_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Weight gradient [3,3,Ci,Co] of a stride-1 SAME 3x3 conv from its
+    input x [B,H,W,Ci] and output cotangent dy [B,H,W,Co], accumulated in
+    float32 (JAX `_conv_w_grad` with preferred_element_type=f32): one GEMM
+    over the pixels per tap.  Not cuDNN's weight gradient, whose float32
+    algorithms (FFT, Winograd) measured 2e-4 of max |dW| away from a
+    float64 reference at [2*7,180,320,64] on the H100."""
+    b, h, w, ci = x.shape
+    xp = F.pad(acc_dtype(x), (0, 0, 1, 1, 1, 1))
+    d = acc_dtype(dy).reshape(-1, dy.shape[-1])
+    return torch.stack([torch.stack([xp[:, ky:ky + h, kx:kx + w].reshape(-1, ci).T @ d
+                                     for kx in range(3)]) for ky in range(3)])
+
+
+def pfrb_bwd_b_ref(dz2, i1, base, w2f, w2b):
+    """Kernel B's backward (kernel 5) from dz2 = d_out * lrelu'(i2):
+
+        d_i1   = convT(dz2_t, W2f)              [N,T,H,W,C], activation dtype
+        dzsum  = sum_t dz2_t   (float32 sum, rounded to the activation dtype)
+        d_base = convT(dzsum, W2b)              [N,H,W,C]
+        dW2f, dW2b [3,3,C,C], db2 [C]           float32
+
+    (pfnl_tpu pfrb_pack.py `_chain_manual_bwd`, :487-493)."""
+    n, t, h, w, c = dz2.shape
+    dz2_4 = dz2.reshape(n * t, h, w, c)
+    d_i1 = conv_same(dz2_4, mirror_t(w2f)).reshape(n, t, h, w, c)
+    dzsum = acc_dtype(dz2).sum(1).to(dz2.dtype)
+    d_base = conv_same(dzsum, mirror_t(w2b))
+    dw2f = conv_w_grad(i1.reshape(n * t, h, w, c), dz2_4)
+    dw2b = conv_w_grad(base, dzsum)
+    db2 = acc_dtype(dz2).sum((0, 1, 2, 3))
+    return d_i1.contiguous(), d_base.contiguous(), dw2f, dw2b, db2
+
+
+def pfrb_bwd_a_ref(dz1, feat, g, w1):
+    """Kernel A's backward (kernel 6) from dz1 = d_i1 * lrelu'(i1), with the
+    block's output cotangent g carried through the residual:
+
+        d_feat = g + convT(dz1_t, W1)           [N,T,H,W,C], activation dtype
+        dW1 [3,3,C,C], db1 [C]                  float32
+
+    (pfnl_tpu pfrb_pack.py `_chain_manual_bwd`, :501-505)."""
+    n, t, h, w, c = dz1.shape
+    dz1_4 = dz1.reshape(n * t, h, w, c)
+    d_feat = g + conv_same(dz1_4, mirror_t(w1)).reshape(n, t, h, w, c)
+    dw1 = conv_w_grad(feat.reshape(n * t, h, w, c), dz1_4)
+    db1 = acc_dtype(dz1).sum((0, 1, 2, 3))
+    return d_feat.contiguous(), dw1, db1
 
 
 def fold_d2s_conv(km2: torch.Tensor) -> torch.Tensor:

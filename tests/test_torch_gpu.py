@@ -13,13 +13,17 @@ per output, so they differ by a few bf16 ulps (2^-8 relative each).
 import pytest
 import torch
 
+from pfnl_tpu_torch.models.blocks import NonLocalBlock
 from pfnl_tpu_torch.models.pfnl import PFNL
 from pfnl_tpu_torch.ops.cuda import launches, reset_launches
 from pfnl_tpu_torch.ops.cuda.nonlocal_flash import nonlocal_flash
 from pfnl_tpu_torch.ops.cuda.pfnl_tail import pfnl_tail
 from pfnl_tpu_torch.ops.cuda.pfrb import pfrb_a, pfrb_b
+from pfnl_tpu_torch.ops.cuda.pfrb_bwd import pfrb_bwd_a, pfrb_bwd_b
+from pfnl_tpu_torch.ops.losses import charbonnier
 from pfnl_tpu_torch.ops.nonlocal_attn import nonlocal_attention_chunked
-from pfnl_tpu_torch.ops.pfrb_ref import pfnl_tail_ref, pfrb_a_ref, pfrb_b_ref
+from pfnl_tpu_torch.ops.pfrb_ref import (pfnl_tail_ref, pfrb_a_ref, pfrb_b_ref, pfrb_bwd_a_ref,
+                                         pfrb_bwd_b_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -91,20 +95,94 @@ def test_pfnl_tail_kernel(gen, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37)])
+def test_pfrb_bwd_kernels(gen, dtype, shape):
+    """Kernels 5 and 6 at ragged tiles; their weight gradients are bitwise
+    the same in a second run."""
+    n, t, h, w = shape
+    feat = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
+    w1, b1, wfuse, bfuse, w2f, w2b, _ = _pfrb_params(gen, t)
+    i1, base = pfrb_a_ref(feat, w1, b1, wfuse, bfuse)
+    dz = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
+    g = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
+    got_b = pfrb_bwd_b(dz, i1, base, w2f, w2b)
+    _assert_close(got_b, pfrb_bwd_b_ref(dz, i1, base, w2f, w2b), dtype)
+    got_a = pfrb_bwd_a(dz, feat, g, w1)
+    _assert_close(got_a, pfrb_bwd_a_ref(dz, feat, g, w1), dtype)
+    again_b, again_a = pfrb_bwd_b(dz, i1, base, w2f, w2b), pfrb_bwd_a(dz, feat, g, w1)
+    for a, b in zip(got_b[2:] + got_a[1:], again_b[2:] + again_a[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_pfnl_kernel_path_matches_plain_path(gen, dtype):
-    """The whole forward, and the launches of one forward batch."""
+    """The whole forward, and the launches of one forward batch: 65x66
+    non-local positions, above the dense limit, so kernel 1 runs."""
     model = PFNL(num_blocks=2, dtype=dtype, generator=torch.Generator().manual_seed(0))
     model = model.cuda().eval()
-    x = torch.rand((2, 7, 12, 18, 3), generator=gen, device="cuda")
+    x = torch.rand((2, 7, 130, 132, 3), generator=gen, device="cuda")
+    want = {"nonlocal_flash": 1, "pfrb_a": 2, "pfrb_b": 2, "pfnl_tail": 1}
     reset_launches()
     with torch.inference_mode():
         got = model(x)
-        assert dict(launches) == {"nonlocal_flash": 1, "pfrb_a": 2, "pfrb_b": 2, "pfnl_tail": 1}
+        assert dict(launches) == want
         ref = model(x, plain=True)
-    assert dict(launches) == {"nonlocal_flash": 1, "pfrb_a": 2, "pfrb_b": 2, "pfnl_tail": 1}
-    assert got.shape == (2, 1, 48, 72, 3) and torch.isfinite(got).all()
+    assert dict(launches) == want
+    assert got.shape == (2, 1, 520, 528, 3) and torch.isfinite(got).all()
     err = ((got - ref).norm() / ref.norm()).item()
     assert err <= TOL[dtype], err
+
+
+def test_pfnl_gradients_kernel_path_match_plain_path(gen):
+    """One float32 training step's loss and gradients through kernels 2-6
+    against pure autograd on the plain path: relative L2 error per
+    parameter within 1e-3 (summation order alone gives about 1e-5)."""
+    model = PFNL(num_blocks=2, generator=torch.Generator().manual_seed(0)).cuda()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(_randn(gen, *p.shape, scale=0.05))
+    x = torch.rand((2, 7, 16, 16, 3), generator=gen, device="cuda")
+    gt = torch.rand((2, 1, 64, 64, 3), generator=gen, device="cuda")
+    grads = {}
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss = charbonnier(model(x, plain=plain), gt)
+        loss.backward()
+        grads[plain] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()})
+        if not plain:
+            assert dict(launches) == {"pfrb_a": 2, "pfrb_b": 2, "pfnl_tail": 1,
+                                      "pfrb_bwd_b": 2, "pfrb_bwd_a": 2}
+    assert dict(launches) == {}
+    assert abs(grads[False][0] - grads[True][0]) <= 1e-5 * grads[True][0]
+    for k, gp in grads[True][1].items():
+        gk = grads[False][1][k]
+        assert ((gk - gp).norm() / gp.norm()).item() <= 1e-3, k
+
+
+def test_wrappers_refuse_to_cut_the_graph(gen):
+    feat = _randn(gen, 1, 3, 8, 8, 64)
+    p = _pfrb_params(gen, 3)
+    w1 = p[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="autograd"):
+        pfrb_a(feat, w1, *p[1:4])
+    with pytest.raises(RuntimeError, match="autograd"):
+        pfrb_a(feat.clone().requires_grad_(), *p[:4])
+    with torch.no_grad():
+        pfrb_a(feat, w1, *p[1:4])                      # inference is not affected
+
+
+def test_nonlocal_kernel_has_no_backward(gen):
+    """Above the dense limit kernel 1 runs, and has no backward to give."""
+    block = NonLocalBlock(84).cuda()
+    x = torch.rand((1, 65, 64, 84), generator=gen, device="cuda")
+    with pytest.raises(NotImplementedError):
+        block(x)                                       # its parameters require grad
+    reset_launches()
+    with torch.no_grad():
+        assert block(x).shape == x.shape
+    assert dict(launches) == {"nonlocal_flash": 1}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
