@@ -1,16 +1,19 @@
 """Command line of the port — counterpart of `run.py test` and `run.py train`:
 
-    python -m pfnl_tpu_torch test pfnl --data DIR [--weights params.npz]
-        [--compute-dtype bfloat16] [--device cuda] [--start 0] [--name NAME]
+    python -m pfnl_tpu_torch test {pfnl,vespcn,mcresnet,ltdvsr,drvsr} --data DIR
+        [--weights params.npz] [--compute-dtype bfloat16] [--device cuda]
+        [--start 0] [--name NAME]
     python -m pfnl_tpu_torch train pfnl --train-list F [--eval-list F]
         [--steps N] [--in-size 32] [--batch-size 16] [--save-dir D]
         [--save-every 500] [--compute-dtype float32|bfloat16] [--no-eval]
         [--device cuda]
 
-`test` super-resolves every sequence of a dataset directory
-(`DIR/<seq>/truth/*.png` degraded on the device) into
-`DIR/<seq>/<NAME>/*.png`.  `--weights` is a flat `.npz` of '/'-joined flax
-parameter paths; without it the weights are random, drawn from `--seed`.
+`test` super-resolves every sequence of a dataset directory into
+`DIR/<seq>/<NAME>/*.png`: PFNL degrades `DIR/<seq>/truth/*.png` on the
+device, the Y-channel families (vespcn, mcresnet, ltdvsr, drvsr) read the
+pre-rendered `DIR/<seq>/blur4/*.png`, as the reference does.  `--weights`
+is a flat `.npz` of '/'-joined flax parameter paths; without it the
+weights are random, drawn from `--seed`.
 
 `train` trains from the sequences of a filelist (the paper config by
 default: batch 16, LR crop 32, 7 frames, float32), saving checkpoints and
@@ -27,13 +30,16 @@ import sys
 
 import torch
 
+from pfnl_tpu_torch.models import MODEL_REGISTRY
+
 
 def _parser():
     p = argparse.ArgumentParser(prog="python -m pfnl_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("test", help="super-resolve every sequence of a dataset dir")
-    t.add_argument("model", choices=["pfnl"])
-    t.add_argument("--data", required=True, help="dataset dir: <seq>/truth/*.png")
+    t.add_argument("model", choices=sorted(MODEL_REGISTRY))
+    t.add_argument("--data", required=True,
+                   help="dataset dir: <seq>/truth/*.png (pfnl) or <seq>/blur4/*.png")
     t.add_argument("--weights", default=None, help="flat .npz of flax params")
     t.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
     t.add_argument("--device", default="cuda")
@@ -59,13 +65,12 @@ def _parser():
 def cmd_test(args):
     from pfnl_tpu_torch.config import preset
     from pfnl_tpu_torch.infer.predictor import Predictor
-    from pfnl_tpu_torch.models.pfnl import PFNL
     from pfnl_tpu_torch.utils.weights import load_npz
 
     cfg = preset(args.model)
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    model = PFNL(num_frames=cfg.num_frames, scale=cfg.scale, dtype=dtype,
-                 generator=torch.Generator().manual_seed(args.seed))
+    model = MODEL_REGISTRY[args.model](num_frames=cfg.num_frames, scale=cfg.scale, dtype=dtype,
+                                       generator=torch.Generator().manual_seed(args.seed))
     if args.weights:
         model.load_state_dict(load_npz(args.weights))
     model.to(args.device).eval()

@@ -1,13 +1,25 @@
-"""Inference API — counterpart of pfnl_tpu/infer/predictor.py for the
-window-batched PFNL family, with the reference's public surface:
+"""Inference API — counterpart of pfnl_tpu/infer/predictor.py, with the
+reference's public surface:
 
   * test_video_truth(path, name, part): read `truth/*.png`, degrade on the
-    model's device, slide edge-clamped temporal windows, run chunked
-    batches, save PNGs, print the total and average seconds per chunk
-    excluding the first (reference model/pfnl.py:203-262).
-  * test_video_lr(path, name, part): the same from `blur{scale}/*.png`.
-  * testvideos(path, start, name): every sequence of a dataset directory
-    (model/pfnl.py:322-332).
+    model's device, super-resolve, save PNGs, print the total and average
+    seconds per chunk excluding the first (reference model/pfnl.py:203-262).
+  * test_video_lr(path, name, part): the same from `blur{scale}/*.png`;
+    `testvideo(path, name, part)` is its VESPCN-family name
+    (model/vespcn.py:298).
+  * testvideos(path, start, name, from_truth): every sequence of a dataset
+    directory (model/pfnl.py:322-332); PFNL degrades `truth/`, the Y
+    families read `blur{scale}/`, unless from_truth says otherwise.
+
+Every family runs edge-clamped temporal windows in batches, its LR
+frames edge-padded to a multiple of the model's `lr_multiple` and its HR
+output cropped back.  What differs is read from the model:
+  * y_channel: False (PFNL) saves the model's RGB output as it comes; True
+    (VESPCN, MCResNet, LTDVSR, DRVSR) serves through `serve_rgb`, which
+    pairs the SR Y of the last output frame with the bicubically upscaled
+    CbCr of the centre frame and converts back to RGB
+    (model/vespcn.py:334-346), passing the model's `serve_kwargs`;
+  * reads_truth: what `testvideos` reads by default.
 
 Frames are read through `source` and written through `sink`, frame stores
 of data/frames.py: by default `PngFrames`, PNG files on disk;
@@ -23,7 +35,9 @@ import torch
 
 from pfnl_tpu_torch.data.frames import MemoryFrames, PngFrames  # noqa: F401  (public here too)
 from pfnl_tpu_torch.data.manifest import scan_dataset_dir
+from pfnl_tpu_torch.ops.color import rgb2ycbcr, ycbcr2rgb
 from pfnl_tpu_torch.ops.degrade import downsample_4d
+from pfnl_tpu_torch.ops.resize import resize_bicubic
 
 
 def to_uint8_img(x: np.ndarray) -> np.ndarray:
@@ -37,10 +51,24 @@ def _clipped_windows(num_frames: int, t: int) -> np.ndarray:
     return np.clip(idx, 0, num_frames - 1)
 
 
+def serve_rgb(model, clip: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """A Y family's whole serving program for a window batch [B,T,h,w,3]
+    (pfnl_tpu `make_serving_fn`): the SR Y of the last output frame, the
+    bicubically upscaled CbCr of the centre frame, ycbcr2rgb -> [B,H,W,3]
+    float32.  The model's `serve_kwargs` go to its forward (DRVSR:
+    last_only, one decode)."""
+    sr_y = model(clip, plain=plain, **model.serve_kwargs)["sr"][:, -1]  # [B,H,W,1]
+    ycc = rgb2ycbcr(clip[:, clip.shape[1] // 2])
+    cbcr = resize_bicubic(ycc, (sr_y.shape[1], sr_y.shape[2]))[..., 1:3]
+    return ycbcr2rgb(torch.cat([sr_y, cbcr], -1))
+
+
 class Predictor:
     def __init__(self, model, batch_windows: int = 4, source=None, sink=None):
-        """model: a window model ([N,T,h,w,3] -> [N,1,Sh,Sw,3], e.g. PFNL)
-        whose parameters sit on the device to run on.  batch_windows: the
+        """model: a window model of one family (PFNL: [N,T,h,w,3] ->
+        [N,1,Sh,Sw,3]; a Y family: a dict whose "sr" is [N,T',Sh,Sw,1])
+        with the serving attributes above, whose parameters sit on the
+        device to run on.  batch_windows: the
         least number of windows per forward batch."""
         self.model = model
         self.num_frames = model.num_frames
@@ -75,11 +103,13 @@ class Predictor:
         return np.concatenate(outs, 0)
 
     def _run_windows(self, lrs: np.ndarray, save_path: str, part: int):
+        """Window batches through the model's serving program.  LR
+        frames are edge-padded to a multiple of the model's lr_multiple
+        and the HR output is cropped back."""
         t = self.num_frames
-        # pad LR frames to an even size (space_to_depth needs it) and crop
-        # the HR output back
+        mult = self.model.lr_multiple
         h0, w0 = lrs.shape[1], lrs.shape[2]
-        padh, padw = (-h0) % 2, (-w0) % 2
+        padh, padw = (-h0) % mult, (-w0) % mult
         if padh or padw:
             lrs = np.pad(lrs, [[0, 0], [0, padh], [0, padw], [0, 0]], "edge")
         out_h, out_w = h0 * self.scale, w0 * self.scale
@@ -100,13 +130,14 @@ class Predictor:
                 sel = np.concatenate([sel, sel[-1:].repeat(pad, 0)])
             st = time.time()
             with torch.inference_mode():
-                sr = self.model(torch.from_numpy(lrs[sel]).to(self.device))
+                clip = torch.from_numpy(lrs[sel]).to(self.device)
+                sr = serve_rgb(self.model, clip) if self.model.y_channel else self.model(clip)[:, 0]
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             sr = sr.cpu().numpy()
             for j in range(num_once - pad):
                 self.sink.write(os.path.join(save_path, f"{i * num_once + j:0>4}.png"),
-                                to_uint8_img(sr[j][0][:out_h, :out_w]))
+                                to_uint8_img(sr[j][:out_h, :out_w]))
             all_time.append(time.time() - st)
         all_time = np.array(all_time)
         avg = np.mean(all_time[1:]) if len(all_time) > 1 else float(all_time[0])
@@ -123,8 +154,17 @@ class Predictor:
         lrs = self._read_video(os.path.join(path, f"blur{self.scale}"))
         return self._run_windows(lrs, os.path.join(path, name), part)
 
-    def testvideos(self, path: str, start: int = 0, name: str = "result"):
-        """test_video_truth on every sequence subdirectory from index
-        `start` on (PFNL degrades truth/, as the reference does)."""
+    def testvideo(self, path: str, name: str = "result", part: int = 1000):
+        """The VESPCN family's name for test_video_lr (model/vespcn.py:298)."""
+        return self.test_video_lr(path, name, part)
+
+    def testvideos(self, path: str, start: int = 0, name: str = "result",
+                   from_truth: bool = None):
+        """Every sequence subdirectory from index `start` on.  from_truth
+        defaults to the model's reads_truth, the reference's behaviour:
+        PFNL degrades truth/, the Y families read blur{scale}/."""
+        if from_truth is None:
+            from_truth = self.model.reads_truth
+        run = self.test_video_truth if from_truth else self.test_video_lr
         for k in scan_dataset_dir(path)[start:]:
-            self.test_video_truth(k, name=name)
+            run(k, name=name)

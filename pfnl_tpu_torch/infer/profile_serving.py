@@ -1,0 +1,134 @@
+"""Where the time goes in a Y family's serving batch on a CUDA device.
+
+    python -m pfnl_tpu_torch.infer.profile_serving [--families vespcn drvsr ...]
+
+For each family at full width, bf16, seeded random weights, one batch of
+`--batch` windows at LR `--lr` (default 180x320 -> 720x1280), it prints:
+
+  * forward ms on the kernel path and on the plain path (`plain=True`):
+    CUDA events around `model(x)`, mean of 5 (kernel) or 3 (plain) calls
+    after a warm-up;
+  * serve_rgb ms (events, mean of 5) and the device's busy share of it: the
+    self device time of every CUDA kernel `torch.profiler` records over two
+    `serve_rgb` calls, halved, over the event time of one call;
+  * that kernel time split by kernel name into splat kernels, convolutions
+    (cuDNN, CUTLASS, GEMM), layout copies (NCHW<->NHWC, copies,
+    transposes) and the rest (elementwise), and the five largest kernels;
+  * the Predictor's host tail of one batch on the host clock: the float32
+    download, then uint8 rounding and the in-memory sink per frame.
+"""
+
+import argparse
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from pfnl_tpu_torch.infer.predictor import MemoryFrames, serve_rgb, to_uint8_img
+from pfnl_tpu_torch.models import MODEL_REGISTRY
+
+Y_FAMILIES = ("vespcn", "drvsr", "mcresnet", "ltdvsr")
+
+
+def seeded_model(family: str, dtype: torch.dtype, seed: int, device="cuda"):
+    """A family at full width: the port's random init from `seed`, then
+    every bias and PReLU slope (flax starts them at 0) drawn from
+    N(0, 0.05^2), so that a bias bug cannot hide."""
+    model = MODEL_REGISTRY[family](dtype=dtype, generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("bias", "alpha")):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    return model.to(device).eval()
+
+
+def _event_ms(fn, reps):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _category(key: str) -> str:
+    k = key.lower()
+    layout = any(t in k for t in ("nchwtonhwc", "nhwctonchw"))
+    if "splat" in k:
+        return "splat kernel"
+    if any(t in k for t in ("conv", "xmma", "cutlass", "gemm", "cudnn")) and not layout:
+        return "convolution"
+    if layout or any(t in k for t in ("copy", "transpose")):
+        return "layout/copy"
+    return "elementwise/other"
+
+
+def profile_family(family: str, batch: int, h: int, w: int, seed: int = 0):
+    model = seeded_model(family, torch.bfloat16, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((batch, model.num_frames, h, w, 3), generator=gen, device="cuda")
+    kw = model.serve_kwargs
+    with torch.inference_mode():
+        model(x, **kw)
+        model(x, plain=True, **kw)
+        serve_rgb(model, x)
+        torch.cuda.synchronize()
+        fwd = _event_ms(lambda: model(x, **kw), 5)
+        plain_fwd = _event_ms(lambda: model(x, plain=True, **kw), 3)
+        srv = _event_ms(lambda: serve_rgb(model, x), 5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                serve_rgb(model, x)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kern) / 2 / 1e3  # us over 2 calls
+        cats = {}
+        for e in kern:
+            cats[_category(e.key)] = cats.get(_category(e.key), 0) + e.self_device_time_total
+
+        dev = serve_rgb(model, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arr = dev.cpu().numpy()
+        t1 = time.perf_counter()
+        sink = MemoryFrames()
+        for j in range(arr.shape[0]):
+            sink.write(f"o/{j:04d}.png", to_uint8_img(arr[j]))
+        t2 = time.perf_counter()
+
+    total = sum(cats.values()) or 1.0
+    print(f"== {family}: {batch} windows, LR {h}x{w}, bf16; forward {fwd:.3f} ms (plain path "
+          f"{plain_fwd:.3f} ms), serve_rgb {srv:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / srv:.1%})", flush=True)
+    print("kernel time: " + ", ".join(f"{c} {v / total:.1%}" for c, v in
+                                      sorted(cats.items(), key=lambda kv: -kv[1])), flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"  {e.self_device_time_total / total:6.1%} {e.self_device_time_total / 2e3:8.3f} ms"
+              f"  {e.key[:80]}", flush=True)
+    print(f"host tail of one batch: download {1e3 * (t1 - t0):.1f} ms, uint8 + sink "
+          f"{1e3 * (t2 - t1):.1f} ms", flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--families", nargs="+", default=list(Y_FAMILIES), choices=Y_FAMILIES)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--lr", type=int, nargs=2, default=(180, 320), metavar=("H", "W"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    # TF32 off, as chip_smoke.py runs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for fam in args.families:
+        profile_family(fam, args.batch, *args.lr)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,12 @@
-"""Model families of the port (PFNL only so far)."""
+"""Model families of the port: PFNL and the Y-channel flow families."""
 
+from pfnl_tpu_torch.models.drvsr import DRVSR
+from pfnl_tpu_torch.models.ltdvsr import LTDVSR
+from pfnl_tpu_torch.models.mcresnet import MCResNet
 from pfnl_tpu_torch.models.pfnl import PFNL
+from pfnl_tpu_torch.models.vespcn import VESPCN
 
-__all__ = ["PFNL"]
+MODEL_REGISTRY = {"pfnl": PFNL, "vespcn": VESPCN, "mcresnet": MCResNet, "ltdvsr": LTDVSR,
+                  "drvsr": DRVSR}
+
+__all__ = ["PFNL", "VESPCN", "MCResNet", "LTDVSR", "DRVSR", "MODEL_REGISTRY"]

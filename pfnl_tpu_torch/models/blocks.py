@@ -11,6 +11,7 @@ import math
 import torch
 from torch import nn
 
+from pfnl_tpu_torch.ops.conv import conv2d_same
 from pfnl_tpu_torch.ops.cuda.nonlocal_flash import nonlocal_flash
 from pfnl_tpu_torch.ops.nonlocal_attn import nonlocal_attention, nonlocal_attention_chunked
 from pfnl_tpu_torch.ops.pfrb_ref import leaky_relu  # noqa: F401  (public here, as in pfnl_tpu)
@@ -40,6 +41,27 @@ class ConvParams(nn.Module):
         super().__init__()
         self.kernel = nn.Parameter(conv_glorot(tuple(kshape), generator))
         self.bias = nn.Parameter(torch.zeros(kshape[-1]))
+
+
+class Conv(ConvParams):
+    """flax nn.Conv with padding "SAME" (any odd or even window, any
+    stride), executed in the activation's dtype with the bias added."""
+
+    def forward(self, x, stride: int = 1):
+        return conv2d_same(x, self.kernel, stride) + self.bias.to(x.dtype)
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU, slope `alpha` zero-initialised (reference
+    modules/videosr_ops.py:44-51; pfnl_tpu blocks.py PReLU), computed as
+    relu(x) + alpha * (x - |x|) / 2."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return torch.relu(x) + self.alpha.to(x.dtype) * (x - x.abs()) * 0.5
 
 
 class Conv1x1(ConvParams):

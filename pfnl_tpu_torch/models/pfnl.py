@@ -21,15 +21,22 @@ import torch
 from torch import nn
 
 from pfnl_tpu_torch.models.blocks import ConvParams, NonLocalBlock, conv_glorot, glorot_uniform
+from pfnl_tpu_torch.ops.conv import conv2d_same
 from pfnl_tpu_torch.ops.cuda.pfnl_tail import merge_tail
 from pfnl_tpu_torch.ops.pfrb_chain import pfrb_chain
-from pfnl_tpu_torch.ops.pfrb_ref import (compose_d2s4, conv_same, leaky_relu, pfnl_tail_ref,
+from pfnl_tpu_torch.ops.pfrb_ref import (compose_d2s4, leaky_relu, pfnl_tail_ref,
                                          pfrb_chain_ref)
 from pfnl_tpu_torch.ops.resize import resize_bicubic
 from pfnl_tpu_torch.ops.shuffle import depth_to_space, space_to_depth
 
 
 class PFNL(nn.Module):
+    # read by the Predictor: RGB out, LR padded to an even size for
+    # space_to_depth(2), testvideos degrades truth/ by default
+    y_channel = False
+    lr_multiple = 2
+    reads_truth = True
+
     def __init__(self, num_frames: int = 7, scale: int = 4, mf: int = 64, num_blocks: int = 20,
                  dtype: torch.dtype = torch.float32, generator: torch.Generator = None):
         """dtype: compute dtype of the activations (float32 or bfloat16);
@@ -93,7 +100,7 @@ class PFNL(nn.Module):
 
         # shared 5x5 conv0, frames folded into the batch
         frames = inp0.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4).reshape(n * t, h, w, c)
-        feat = leaky_relu(conv_same(frames, self.conv0.kernel) + self.conv0.bias.to(dt))
+        feat = leaky_relu(conv2d_same(frames, self.conv0.kernel) + self.conv0.bias.to(dt))
         feat = feat.reshape(n, t, h, w, mf).contiguous()
 
         feat = run_chain(feat, [self.block_params(i) for i in range(self.num_blocks)])

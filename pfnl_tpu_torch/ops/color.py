@@ -1,0 +1,48 @@
+"""BT.601 studio-swing colour conversions on [0,1] floats (counterpart:
+pfnl_tpu/ops/color.py, whose constants these are, down to the reference's
+truncated inverse `_YCBCR_TINV`).  They act on the trailing channel axis
+of any rank and keep the input's dtype: bf16 stays bf16.
+"""
+
+import numpy as np
+import torch
+
+_Y_SCALE = np.array([65.481, 128.553, 24.966], np.float32) / 255.0
+_YCBCR_T = (
+    np.array([[65.481, 128.553, 24.966], [-37.797, -74.203, 112.0], [112.0, -93.786, -18.214]],
+             np.float32)
+    / 255.0
+)
+_YCBCR_OFFSET = np.array([16.0, 128.0, 128.0], np.float32) / 255.0
+# The reference hard-codes this (truncated) inverse (modules/videosr_ops.py:112).
+_YCBCR_TINV = (
+    np.array([[0.00456621, 0.0, 0.00625893],
+              [0.00456621, -0.00153632, -0.00318811],
+              [0.00456621, 0.00791071, 0.0]], np.float32)
+    * 255.0
+)
+
+
+def _const(a: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(a, device=x.device).to(x.dtype)
+
+
+def rgb2y(x: torch.Tensor) -> torch.Tensor:
+    """[..., 3] RGB -> [..., 1] Y; single-channel input passes through."""
+    if x.shape[-1] == 1:
+        return x
+    return (x * _const(_Y_SCALE, x)).sum(-1, keepdim=True) + _const(np.float32(16.0 / 255.0), x)
+
+
+def rgb2ycbcr(x: torch.Tensor) -> torch.Tensor:
+    """[..., 3] RGB -> [..., 3] YCbCr."""
+    if x.shape[-1] == 1:
+        return x
+    return x @ _const(_YCBCR_T, x).T + _const(_YCBCR_OFFSET, x)
+
+
+def ycbcr2rgb(x: torch.Tensor) -> torch.Tensor:
+    """[..., 3] YCbCr -> [..., 3] RGB, through the truncated inverse."""
+    if x.shape[-1] == 1:
+        return x
+    return (x - _const(_YCBCR_OFFSET, x)) @ _const(_YCBCR_TINV, x).T

@@ -13,10 +13,16 @@ reaches kernels 2-6 through ops/pfrb_chain.py and `merge_tail`.
   pfnl_tail       kernel 4  ops/cuda/pfnl_tail.py       csrc/pfnl_tail.cu
   pfrb_bwd_b      kernel 5  ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
   pfrb_bwd_a      kernel 6  ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
+  bounded_splat   kernel 7  ops/cuda/bounded_splat.py   csrc/bounded_splat.cu
+  spmc_splat      kernel 8  ops/cuda/spmc_splat.py      csrc/spmc_splat.cu
+
+Kernels 1-6 serve PFNL; 7 and 8 the flow families, reached through
+ops/warp.py's `forward_warp_local` and `forward_warp_spmc`.
 """
 
 from pfnl_tpu_torch.ops.cuda._build import launches, reset_launches
 
-KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a")
+KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a",
+           "bounded_splat", "spmc_splat")
 
 __all__ = ["KERNELS", "launches", "reset_launches"]

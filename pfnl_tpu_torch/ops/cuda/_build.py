@@ -1,12 +1,14 @@
 """Build, load and call the port's CUDA kernels.
 
-Every `csrc/*.cu` is compiled by `nvcc` into ONE shared library with a
-plain C interface, `build/libpfnl_kernels.so`, on first use, and loaded
-with ctypes (no PyTorch headers are compiled, so a build takes seconds).
-A file lock serialises concurrent builds; the library is rebuilt when any
-source is newer than it.  A failed build raises.  The `-Xptxas -v` report
-(registers, shared memory, spills per kernel) is kept beside the library
-in `build/ptxas.txt`.
+Every `csrc/*.cu` is compiled by its own `nvcc` process, all started
+together, into an object file under `build/obj/`; one more `nvcc` links
+them into ONE shared library with a plain C interface,
+`build/libpfnl_kernels.so`, on first use, loaded with ctypes (no PyTorch
+headers are compiled, so a build takes seconds).  A file lock serialises
+concurrent builds; the library is rebuilt when any source is newer than
+it.  A failed build raises.  The `-Xptxas -v` report (registers, shared
+memory, spills per kernel) is kept beside the library in
+`build/ptxas.txt`.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on machines without nvcc or a GPU.
@@ -28,8 +30,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 LIB = os.path.join(BUILD, "libpfnl_kernels.so")
 PTXAS_LOG = os.path.join(BUILD, "ptxas.txt")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+OBJ = os.path.join(BUILD, "obj")
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = GENCODE + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches per kernel name, bumped by each wrapper where it launches
 # its kernel (never on the plain CPU path).
@@ -72,16 +75,33 @@ def build(force: bool = False) -> float:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not (force or _stale()):
             return 0.0
-        tmp = f"{LIB}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+        os.makedirs(OBJ, exist_ok=True)
+        nvcc = _nvcc()
         t0 = time.perf_counter()
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(OBJ, os.path.basename(src)[:-3] + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        report, failed = [], []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            report.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{LIB}.{os.getpid()}.tmp"
+        cmd = [nvcc, *GENCODE, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+            raise RuntimeError(f"nvcc link failed with code {proc.returncode}:\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        seconds = time.perf_counter() - t0
         with open(PTXAS_LOG, "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write("".join(report))
         os.replace(tmp, LIB)
         return seconds
 

@@ -1,0 +1,39 @@
+"""Kernel 7: the bounded same-size bilinear splat (csrc/bounded_splat.cu).
+
+Counterpart of `bounded_splat_canvas` in
+pfnl_tpu/ops/pallas/bounded_splat.py plus the border fold that
+pfnl_tpu/ops/warp.py applies to its canvas; the plain version is
+`forward_warp_local_ref` (ops/warp.py).  The public entry is
+`ops.warp.forward_warp_local`.
+"""
+
+import torch
+
+from pfnl_tpu_torch.ops import warp
+from pfnl_tpu_torch.ops.cuda import _build
+
+MAX_CHANNELS = 4  # the kernel keeps one float accumulator per channel in registers
+
+
+def bounded_splat(im: torch.Tensor, uv: torch.Tensor, max_disp: int) -> torch.Tensor:
+    """im [B,H,W,C], uv [B,H,W,2] with |uv| <= max_disp -> the splat
+    [B,H,W,C] in im's dtype, border folded.  Taps outside the window of
+    the bound are dropped, as in the plain version."""
+    if im.device.type == "cpu":
+        return warp.forward_warp_local_ref(im, uv, max_disp)
+    _build.check_cuda_inputs("bounded_splat", im, uv)
+    _build.check_no_grad("bounded_splat", im, uv)
+    if im.dtype != uv.dtype:
+        raise TypeError(f"bounded_splat: im {im.dtype} and uv {uv.dtype} differ")
+    sfx = _build.suffix(im.dtype)
+    if im.dim() != 4 or tuple(uv.shape) != tuple(im.shape[:3]) + (2,):
+        raise ValueError(f"bounded_splat: im must be [B,H,W,C] and uv [B,H,W,2], got "
+                         f"{tuple(im.shape)} and {tuple(uv.shape)}")
+    b, h, w, c = im.shape
+    if not 1 <= c <= MAX_CHANNELS or max_disp < 0 or min(b, h, w) < 1:
+        raise ValueError(f"bounded_splat: takes 1 <= C <= {MAX_CHANNELS} and max_disp >= 0, "
+                         f"got C={c}, max_disp={max_disp}")
+    out = torch.empty_like(im)
+    _build.call(f"pfnl_bounded_splat_{sfx}", im, uv, out, b, h, w, c, int(max_disp))
+    _build.launches["bounded_splat"] += 1
+    return out

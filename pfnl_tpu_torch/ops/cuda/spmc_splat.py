@@ -1,0 +1,37 @@
+"""Kernel 8: the SPMC upscale-while-warp splat (csrc/spmc_splat.cu).
+
+Counterpart of `spmc_phases` in pfnl_tpu/ops/pallas/spmc_splat.py plus
+the phase interleave and border fold that pfnl_tpu/ops/warp.py applies to
+its canvases; the plain version is `forward_warp_local_spmc`
+(ops/warp.py).  The public entry is `ops.warp.forward_warp_spmc`.
+"""
+
+import torch
+
+from pfnl_tpu_torch.ops import warp
+from pfnl_tpu_torch.ops.cuda import _build
+
+SCALE = 4  # the kernel's phase block is compiled for x4 (DRVSR's only scale)
+
+
+def spmc_splat(im: torch.Tensor, uv: torch.Tensor, scale: int, max_disp: int) -> torch.Tensor:
+    """im [B,H,W,1], uv [B,H,W,2] with |uv| <= max_disp -> the splat onto
+    the x`scale` grid, [B,sH,sW,1] in im's dtype, border folded."""
+    if im.device.type == "cpu":
+        return warp.forward_warp_local_spmc(im, uv, scale, max_disp)
+    _build.check_cuda_inputs("spmc_splat", im, uv)
+    _build.check_no_grad("spmc_splat", im, uv)
+    if im.dtype != uv.dtype:
+        raise TypeError(f"spmc_splat: im {im.dtype} and uv {uv.dtype} differ")
+    sfx = _build.suffix(im.dtype)
+    if im.dim() != 4 or im.shape[-1] != 1 or tuple(uv.shape) != tuple(im.shape[:3]) + (2,):
+        raise ValueError(f"spmc_splat: im must be [B,H,W,1] and uv [B,H,W,2], got "
+                         f"{tuple(im.shape)} and {tuple(uv.shape)}")
+    b, h, w, _ = im.shape
+    if scale != SCALE or max_disp < 0 or min(b, h, w) < 1:
+        raise ValueError(f"spmc_splat: takes scale {SCALE} and max_disp >= 0, "
+                         f"got scale={scale}, max_disp={max_disp}")
+    out = torch.empty((b, h * scale, w * scale, 1), dtype=im.dtype, device=im.device)
+    _build.call(f"pfnl_spmc_splat_{sfx}", im, uv, out, b, h, w, int(max_disp))
+    _build.launches["spmc_splat"] += 1
+    return out

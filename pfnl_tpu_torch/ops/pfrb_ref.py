@@ -17,6 +17,7 @@ Weights are cast to the activation dtype at use, as the JAX package does.
 import torch
 import torch.nn.functional as F
 
+from pfnl_tpu_torch.ops.conv import conv2d_same
 from pfnl_tpu_torch.ops.shuffle import depth_to_space
 
 
@@ -25,18 +26,11 @@ def leaky_relu(x, alpha: float = 0.2):
     return torch.maximum(x, alpha * x)
 
 
-def conv_same(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Stride-1 SAME conv, NHWC activations and an HWIO (odd-sized) kernel."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), k.to(x.dtype).permute(3, 2, 0, 1),
-                 padding=k.shape[0] // 2)
-    return y.permute(0, 2, 3, 1)
-
-
 def pfrb_a_ref(feat, w1, b1, wfuse, bfuse):
     """feat [N,T,H,W,C] -> (i1 [N,T,H,W,C], base [N,H,W,C])."""
     n, t, h, w, c = feat.shape
     dt = feat.dtype
-    i1 = leaky_relu(conv_same(feat.reshape(n * t, h, w, c), w1) + b1.to(dt))
+    i1 = leaky_relu(conv2d_same(feat.reshape(n * t, h, w, c), w1) + b1.to(dt))
     i1 = i1.reshape(n, t, h, w, c)
     base = leaky_relu(torch.einsum("nthwc,tcd->nhwd", i1, wfuse.to(dt)) + bfuse.to(dt))
     return i1.contiguous(), base.contiguous()
@@ -45,8 +39,8 @@ def pfrb_a_ref(feat, w1, b1, wfuse, bfuse):
 def pfrb_b_ref(feat, i1, base, w2f, w2b, b2):
     """-> out [N,T,H,W,C] = feat + lrelu(conv(i1,W2f) + conv(base,W2b) + b2)."""
     n, t, h, w, c = feat.shape
-    base_part = conv_same(base, w2b)
-    frame_part = conv_same(i1.reshape(n * t, h, w, c), w2f).reshape(n, t, h, w, c)
+    base_part = conv2d_same(base, w2b)
+    frame_part = conv2d_same(i1.reshape(n * t, h, w, c), w2f).reshape(n, t, h, w, c)
     i2 = leaky_relu(frame_part + base_part[:, None] + b2.to(feat.dtype))
     return (feat + i2).contiguous()
 
@@ -99,9 +93,9 @@ def pfrb_bwd_b_ref(dz2, i1, base, w2f, w2b):
     (pfnl_tpu pfrb_pack.py `_chain_manual_bwd`, :487-493)."""
     n, t, h, w, c = dz2.shape
     dz2_4 = dz2.reshape(n * t, h, w, c)
-    d_i1 = conv_same(dz2_4, mirror_t(w2f)).reshape(n, t, h, w, c)
+    d_i1 = conv2d_same(dz2_4, mirror_t(w2f)).reshape(n, t, h, w, c)
     dzsum = acc_dtype(dz2).sum(1).to(dz2.dtype)
-    d_base = conv_same(dzsum, mirror_t(w2b))
+    d_base = conv2d_same(dzsum, mirror_t(w2b))
     dw2f = conv_w_grad(i1.reshape(n * t, h, w, c), dz2_4)
     dw2b = conv_w_grad(base, dzsum)
     db2 = acc_dtype(dz2).sum((0, 1, 2, 3))
@@ -118,7 +112,7 @@ def pfrb_bwd_a_ref(dz1, feat, g, w1):
     (pfnl_tpu pfrb_pack.py `_chain_manual_bwd`, :501-505)."""
     n, t, h, w, c = dz1.shape
     dz1_4 = dz1.reshape(n * t, h, w, c)
-    d_feat = g + conv_same(dz1_4, mirror_t(w1)).reshape(n, t, h, w, c)
+    d_feat = g + conv2d_same(dz1_4, mirror_t(w1)).reshape(n, t, h, w, c)
     dw1 = conv_w_grad(feat.reshape(n * t, h, w, c), dz1_4)
     db1 = acc_dtype(dz1).sum((0, 1, 2, 3))
     return d_feat.contiguous(), dw1, db1
@@ -157,8 +151,8 @@ def pfnl_tail_ref(feat5, wm1, bm1, km2, bm2):
     n, t, h, w, c = feat5.shape
     dt = feat5.dtype
     merge = feat5.permute(0, 2, 3, 1, 4).reshape(n, h, w, t * c)
-    m = leaky_relu(conv_same(merge, wm1) + bm1.to(dt))
-    out = conv_same(m, fold_d2s_conv(km2.to(dt))) + bm2.to(dt).repeat(4)
+    m = leaky_relu(conv2d_same(merge, wm1) + bm1.to(dt))
+    out = conv2d_same(m, fold_d2s_conv(km2.to(dt))) + bm2.to(dt).repeat(4)
     return out.contiguous()
 
 
@@ -168,8 +162,8 @@ def tail_only_ref(feat5, wm1, bm1, km2, bm2):
     n, t, h, w, c = feat5.shape
     dt = feat5.dtype
     merge = feat5.permute(0, 2, 3, 1, 4).reshape(n, h, w, t * c)
-    m = leaky_relu(conv_same(merge, wm1) + bm1.to(dt))
-    o = conv_same(depth_to_space(m, 2), km2) + bm2.to(dt)
+    m = leaky_relu(conv2d_same(merge, wm1) + bm1.to(dt))
+    o = conv2d_same(depth_to_space(m, 2), km2) + bm2.to(dt)
     return depth_to_space(o, 2)
 
 

@@ -54,14 +54,27 @@ def _resize_matrix(n_in: int, n_out: int, method: str, mapping: str) -> np.ndarr
     return w.astype(np.float32)
 
 
-def resize_bicubic(x: torch.Tensor, size) -> torch.Tensor:
-    """[N,H,W,C] -> [N,H',W',C].  bf16 stays bf16 through both products;
-    every other dtype computes in float32."""
+def resize_images(x: torch.Tensor, size, method: str = "bilinear") -> torch.Tensor:
+    """[N,H,W,C] or [N,T,H,W,C] -> spatial size (H',W'); a 5-D input folds
+    T into the batch (reference modules/videosr_ops.py:60-68).  bf16 stays
+    bf16 through both products; every other dtype computes in float32."""
+    if x.dim() == 5:
+        n, t = x.shape[:2]
+        y = resize_images(x.reshape((n * t,) + x.shape[2:]), size, method)
+        return y.reshape((n, t) + y.shape[1:])
     out_h, out_w = int(size[0]), int(size[1])
     n, h, w, c = x.shape
     compute = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    wh = torch.as_tensor(_resize_matrix(h, out_h, "bicubic", "tf1"), device=x.device).to(compute)
-    ww = torch.as_tensor(_resize_matrix(w, out_w, "bicubic", "tf1"), device=x.device).to(compute)
+    wh = torch.as_tensor(_resize_matrix(h, out_h, method, "tf1"), device=x.device).to(compute)
+    ww = torch.as_tensor(_resize_matrix(w, out_w, method, "tf1"), device=x.device).to(compute)
     y = torch.einsum("oh,nhwc->nowc", wh, x.to(compute))
     y = torch.einsum("pw,nowc->nopc", ww, y)
     return y.to(x.dtype)
+
+
+def resize_bicubic(x: torch.Tensor, size) -> torch.Tensor:
+    return resize_images(x, size, "bicubic")
+
+
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    return resize_images(x, size, "bilinear")

@@ -23,3 +23,12 @@ def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
     h, w = hr // r, wr // r
     x = x.reshape(n, h, r, w, r, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(n, h, w, r * r * c)
+
+
+def pixel_shuffle_legacy(x: torch.Tensor, r: int, n_out: int) -> torch.Tensor:
+    """The reference's `_PS` (modules/ps.py:3-15): split C into r groups,
+    concat them along W, reshape to [N,H*r,W*r,n_out].  That is
+    depth_to_space with the channel count checked."""
+    if x.shape[-1] != r * r * n_out:
+        raise ValueError(f"_PS: C={x.shape[-1]} != r^2*n_out={r * r * n_out}")
+    return depth_to_space(x, r)

@@ -13,17 +13,21 @@ per output, so they differ by a few bf16 ulps (2^-8 relative each).
 import pytest
 import torch
 
+from pfnl_tpu_torch.models import DRVSR, LTDVSR, MCResNet, VESPCN
 from pfnl_tpu_torch.models.blocks import NonLocalBlock
 from pfnl_tpu_torch.models.pfnl import PFNL
 from pfnl_tpu_torch.ops.cuda import launches, reset_launches
+from pfnl_tpu_torch.ops.cuda.bounded_splat import bounded_splat
 from pfnl_tpu_torch.ops.cuda.nonlocal_flash import nonlocal_flash
 from pfnl_tpu_torch.ops.cuda.pfnl_tail import pfnl_tail
 from pfnl_tpu_torch.ops.cuda.pfrb import pfrb_a, pfrb_b
 from pfnl_tpu_torch.ops.cuda.pfrb_bwd import pfrb_bwd_a, pfrb_bwd_b
+from pfnl_tpu_torch.ops.cuda.spmc_splat import spmc_splat
 from pfnl_tpu_torch.ops.losses import charbonnier
 from pfnl_tpu_torch.ops.nonlocal_attn import nonlocal_attention_chunked
 from pfnl_tpu_torch.ops.pfrb_ref import (pfnl_tail_ref, pfrb_a_ref, pfrb_b_ref, pfrb_bwd_a_ref,
                                          pfrb_bwd_b_ref)
+from pfnl_tpu_torch.ops.warp import forward_warp_local_ref, forward_warp_local_spmc
 
 pytestmark = pytest.mark.gpu
 
@@ -198,3 +202,79 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         nonlocal_flash(*(_randn(gen, 1, 10, 128) for _ in range(3)))  # D > 96
     with pytest.raises(ValueError):
         pfnl_tail(feat, p[0], p[1], p[2], p[3])        # wrong merge kernel shape
+
+
+def _flows(gen, b, h, w, r):
+    """Flows in [-r, r], the bound met at two corners, one flow beyond it."""
+    uv = (torch.rand((b, h, w, 2), generator=gen, device="cuda") * 2 - 1) * r
+    uv[0, 0, 0] = torch.tensor([r, -r])
+    uv[-1, -1, -1] = torch.tensor([-r, r])
+    uv[0, h // 2, w // 2] = torch.tensor([2.6 * r, -1.3 * r])
+    return uv
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,r", [((3, 1, 37, 45), 2), ((2, 3, 20, 70), 1), ((1, 4, 9, 5), 2)])
+def test_bounded_splat_kernel(gen, dtype, shape, r):
+    """Kernel 7 against its plain version at ragged tiles; bitwise equal
+    over two launches."""
+    b, c, h, w = shape
+    im = torch.rand((b, h, w, c), generator=gen, device="cuda").to(dtype)
+    uv = _flows(gen, b, h, w, r).to(dtype)
+    got = bounded_splat(im, uv, r)
+    _assert_close(got, forward_warp_local_ref(im, uv, r), dtype)
+    assert torch.equal(got, bounded_splat(im, uv, r))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(3, 20, 37), (1, 7, 5)])
+def test_spmc_splat_kernel(gen, dtype, shape):
+    """Kernel 8 against its plain version at ragged tiles; bitwise equal
+    over two launches."""
+    b, h, w = shape
+    im = torch.rand((b, h, w, 1), generator=gen, device="cuda").to(dtype)
+    uv = _flows(gen, b, h, w, 2).to(dtype)
+    got = spmc_splat(im, uv, 4, 2)
+    _assert_close(got, forward_warp_local_spmc(im, uv, 4, 2), dtype)
+    assert torch.equal(got, spmc_splat(im, uv, 4, 2))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cls,want", [(VESPCN, {"bounded_splat": 1}),
+                                      (MCResNet, {"bounded_splat": 1}),
+                                      (LTDVSR, {"bounded_splat": 1}),
+                                      (DRVSR, {"spmc_splat": 1})])
+def test_y_family_kernel_path_matches_plain_path(gen, dtype, cls, want):
+    """A Y family's serving forward: its splat kernel launched once per
+    batch, against plain=True (relative L2)."""
+    model = cls(dtype=dtype, generator=torch.Generator().manual_seed(0)).cuda().eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("bias", "alpha")):
+                p.copy_(_randn(gen, *p.shape, scale=0.1))
+    x = torch.rand((2, model.num_frames, 36, 44, 3), generator=gen, device="cuda")
+    kw = model.serve_kwargs
+    reset_launches()
+    with torch.inference_mode():
+        got = model(x, **kw)["sr"]
+        assert dict(launches) == want
+        ref = model(x, plain=True, **kw)["sr"]
+    assert dict(launches) == want
+    assert got.shape == (2, 1, 144, 176, 1) and torch.isfinite(got).all()
+    err = ((got - ref).norm() / ref.norm()).item()
+    assert err <= TOL[dtype], err
+
+
+def test_splat_wrappers_reject_what_the_kernels_do_not_take(gen):
+    im = torch.rand((1, 8, 8, 1), generator=gen, device="cuda")
+    uv = _flows(gen, 1, 8, 8, 2)
+    with pytest.raises(TypeError):
+        bounded_splat(im, uv.bfloat16(), 2)                   # mixed dtypes
+    with pytest.raises(ValueError):
+        bounded_splat(im.expand(1, 8, 8, 5).contiguous(), uv, 2)  # C > 4
+    with pytest.raises(ValueError):
+        bounded_splat(im.transpose(1, 2), uv, 2)               # not contiguous
+    with pytest.raises(ValueError):
+        spmc_splat(im, uv, 2, 2)                               # scale other than 4
+    with pytest.raises(RuntimeError, match="autograd"):
+        spmc_splat(im.clone().requires_grad_(), uv, 4, 2)
