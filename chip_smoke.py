@@ -47,12 +47,38 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      of the centre frame, which the splat never touches); prints HR
      frames/s and peak memory.
 
-The second-to-last line is a JSON summary of the kernels (launches: the
-inference path's of phase 4 plus the training path's of phase 5c for
-kernels 1-6, the Y-serving path's of phase 6 for kernels 7 and 8; errors
-and times: phase 3's bf16 ones for kernels 1-4, 7 (VESPCN's shape) and 8,
-phase 5a's float32 ones at the training shape for kernels 5 and 6); the
-last line is {"ok": true, "device": {...}}.  There is no CPU fallback: without a CUDA
+  7. DUF-52L (7 frames, x4, 21 SAME-T + 3 VALID-T dense blocks, growth
+     16, bf16, seeded random weights and BatchNorm statistics):
+     a. kernels 9 (a dense block) and 10 (its growth conv) against their
+        plain versions at batch 2, LR 180x320, at the first block (F 64),
+        the last SAME-T block (F 384), the last VALID-T block (F 432, T
+        3 -> 1) and a 16L block (F 128, G 32), in float32 and bfloat16;
+        kernel 9 on a buffer and scratch that hold NaN wherever the block
+        may not read: the new channels are finite and every other element
+        is bitwise unchanged; times beside the plain versions', F.conv3d's
+        (kernel 10) and the bound;
+     b. serving end to end: Predictor.test_video_lr over the clip degraded
+        on the device to 180x320 (uint8 blur4/ frames in memory), batch 4
+        windows; checks the 12 output frames, kernel 9's 24 launches per
+        forward batch and no other kernel, and on the first window the
+        bf16 and float32 kernel paths against the float32 plain path on
+        the SR and on the backbone's output (the dynamic-filtered centre
+        frame, most of |SR|, never passes the backbone); HR frames/s and
+        peak memory;
+     c. the same window with conv3d_impl="pallas": kernel 10 launched 24
+        times, kernel 9 none, against the float32 plain path.
+
+The second-to-last line is a JSON summary of the kernels: launches from
+the path that runs each (phase 4 plus 5c for kernels 1-6, 6 for 7 and 8,
+7b for 9, 7c for 10); errors and times at the shape named in TIMED (bf16
+but for kernels 5 and 6, float32 at the training shape); `bound_ms`, the
+least time the card could take for the same work (the larger of the
+bytes each call must move over 3.35 TB/s and its operations over the
+peak rate of their type, 989 TFLOP/s bf16 or 67 float32, NVIDIA's data
+sheet), with what sets it; `library_ms`, one PyTorch call computing the
+same function where there is one (kernel 1: scaled_dot_product_attention
+with scale 1; kernel 10: F.conv3d), else null.  The last line is
+{"ok": true, "device": {...}}.  There is no CPU fallback: without a CUDA
 device the script fails before printing any result.
 """
 
@@ -89,6 +115,19 @@ Y_FAMILIES = {"vespcn": ("bounded_splat", True), "drvsr": ("spmc_splat", True),
 TRUNK_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
 PFNL_KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a")
 HBM_PEAK_GBS = 3350.0                   # H100 SXM HBM3, NVIDIA's data sheet
+PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 67.0}  # dense bf16 tensor cores; float32 CUDA cores
+# phase 7a: (label, F, G, mode, input planes [lo, hi) of a 7-plane buffer)
+DUF_CASES = [("first block", 64, 16, "thw", 0, 7), ("last SAME-T block", 384, 16, "thw", 0, 7),
+             ("last VALID-T block", 432, 16, "hw", 2, 5), ("16L block", 128, 32, "thw", 0, 7)]
+DUF_TIMED = "last SAME-T block"         # the 7a case in the JSON summary
+# phase 7b: rel L2 of the backbone's output against the f32 plain path; bf16: 24 blocks
+# each rounding `a` and its output to bf16 (2^-8 relative) compound; f32: summation order
+BACKBONE_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
+TIMED = {"nonlocal_flash": "bf16 [2,14400,84]", "pfrb_a": "bf16 [2,7,180,320,64]",
+         "pfrb_b": "bf16 [2,7,180,320,64]", "pfnl_tail": "bf16 [2,7,180,320,64]",
+         "pfrb_bwd_b": "float32 [16,7,32,32,64]", "pfrb_bwd_a": "float32 [16,7,32,32,64]",
+         "bounded_splat": "bf16 VESPCN [12,1,180,320] R=2", "spmc_splat": "bf16 DRVSR [12,180,320]",
+         "duf_block": "bf16 F=384 [2,7,180,320]", "duf_dense": "bf16 F=384 [2,7,180,320]"}
 TPU_KERNEL = {
     "nonlocal_flash": "pfnl_tpu/ops/pallas/nonlocal_flash.py:103",
     "pfrb_a": "pfnl_tpu/ops/pallas/pfrb_pack.py:313",
@@ -98,6 +137,8 @@ TPU_KERNEL = {
     "pfrb_bwd_a": "pfnl_tpu/ops/pallas/pfrb_bwd.py:224",
     "bounded_splat": "pfnl_tpu/ops/pallas/bounded_splat.py:83",
     "spmc_splat": "pfnl_tpu/ops/pallas/spmc_splat.py:95",
+    "duf_block": "pfnl_tpu/ops/pallas/duf_block.py:218",
+    "duf_dense": "pfnl_tpu/ops/pallas/duf_dense.py:109",
 }
 SOURCE = {
     "nonlocal_flash": "pfnl_tpu_torch/csrc/nonlocal_flash.cu",
@@ -108,6 +149,8 @@ SOURCE = {
     "pfrb_bwd_a": "pfnl_tpu_torch/csrc/pfrb_bwd.cu",
     "bounded_splat": "pfnl_tpu_torch/csrc/bounded_splat.cu",
     "spmc_splat": "pfnl_tpu_torch/csrc/spmc_splat.cu",
+    "duf_block": "pfnl_tpu_torch/csrc/duf_block.cu",
+    "duf_dense": "pfnl_tpu_torch/csrc/duf_dense.cu",
 }
 
 
@@ -125,6 +168,20 @@ def cuda_time_ms(fn, reps=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors):
+    """Bytes of the tensors, each counted once (tuples flattened)."""
+    flat = [t for x in tensors for t in (x if isinstance(x, (tuple, list)) else (x,))]
+    return sum(t.numel() * t.element_size() for t in flat if isinstance(t, torch.Tensor))
+
+
+def bound(flop, nbyte, dtype_key):
+    """(ms, what sets it): the larger of the bytes over the HBM rate and the
+    operations over the peak rate of their type."""
+    t_bytes = nbyte / (HBM_PEAK_GBS * 1e9)
+    t_ops = flop / (PEAK_TFLOPS[dtype_key] * 1e12)
+    return max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def phase_device():
@@ -236,11 +293,21 @@ def phase_kernels(card):
         k2 = cuda_time_ms(lambda: kernel(*args))
         p2 = cuda_time_ms(lambda: plain(*args))
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound_ms, bound_by = bound(flop, nbytes(args, kernel(*args)), "bfloat16")
+        library_ms, lib_note = None, ""
+        if name == "nonlocal_flash":  # softmax(theta phi^T) g, unscaled
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(*args, scale=1.0)
+            lib_err = _max_errs(lib(), plain(*args))[1]
+            library_ms = cuda_time_ms(lib)
+            lib_note = (f", scaled_dot_product_attention(scale=1) {library_ms:.3f} ms (max_rel_err "
+                        f"{lib_err:.3e} vs plain)")
         print(f"[3 time] {name} bf16 [{B},{T},{H},{W}]: kernel {ms:.3f} ms "
               f"({flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms "
-              f"({flop / plain_ms / 1e9:.2f} TFLOP/s) on {card}", flush=True)
+              f"({flop / plain_ms / 1e9:.2f} TFLOP/s){lib_note}; bound {bound_ms:.3f} ms "
+              f"({bound_by}) on {card}", flush=True)
         results[name] = dict(max_abs_err=res["bfloat16"], max_abs_err_f32=res["float32"],
-                             ms=ms, plain_ms=plain_ms)
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
     return results
 
 
@@ -281,8 +348,7 @@ def phase_splat_kernels(card):
                 fail(f"{name} {key} {(b, c, h, w)}: two launches differ")
             res[key] = abs_err
         im, uv = im32.bfloat16(), uv32.bfloat16()
-        out_elems = got.numel()
-        nbytes = 2 * (im.numel() + uv.numel() + out_elems)   # read once, write once, bf16
+        nbyte = 2 * (im.numel() + uv.numel() + got.numel())   # read once, write once, bf16
         for fn in (kernel, plain):  # warm-up
             fn(im, uv, r)
         p1 = cuda_time_ms(lambda: plain(im, uv, r))
@@ -290,14 +356,18 @@ def phase_splat_kernels(card):
         k2 = cuda_time_ms(lambda: kernel(im, uv, r))
         p2 = cuda_time_ms(lambda: plain(im, uv, r))
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        gbs = nbytes / ms / 1e6
+        gbs = nbyte / ms / 1e6
+        # a multiply-add per bilinear tap and channel of every source pixel
+        bound_ms, bound_by = bound(2.0 * 4 * b * h * w * c, nbyte, "float32")
         print(f"[3 time] {name} ({caller}) bf16 [{b},{c},{h},{w}] R={r}: kernel {ms:.4f} ms "
-              f"({k1:.4f}, {k2:.4f}; {nbytes / 1e6:.1f} MB, {gbs:.1f} GB/s, "
+              f"({k1:.4f}, {k2:.4f}; {nbyte / 1e6:.1f} MB, {gbs:.1f} GB/s, "
               f"{gbs / HBM_PEAK_GBS:.1%} of {HBM_PEAK_GBS:.0f} GB/s), plain {plain_ms:.3f} ms "
-              f"({p1:.3f}, {p2:.3f}; {nbytes / plain_ms / 1e6:.1f} GB/s) on {card}", flush=True)
+              f"({p1:.3f}, {p2:.3f}; {nbyte / plain_ms / 1e6:.1f} GB/s); bound {bound_ms:.4f} ms "
+              f"({bound_by}) on {card}", flush=True)
         if name not in results:  # the first case of each kernel is the summary's
             results[name] = dict(max_abs_err=res["bfloat16"], max_abs_err_f32=res["float32"],
-                                 ms=ms, plain_ms=plain_ms)
+                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=None)
     return results
 
 
@@ -337,9 +407,8 @@ def phase_end_to_end(card):
     counts = {k: launches[k] for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
 
-    want = {"nonlocal_flash": 1, "pfrb_a": model.num_blocks, "pfrb_b": model.num_blocks,
-            "pfnl_tail": 1, "pfrb_bwd_b": 0, "pfrb_bwd_a": 0, "bounded_splat": 0,
-            "spmc_splat": 0}
+    want = {k: 0 for k in KERNELS}
+    want.update(nonlocal_flash=1, pfrb_a=model.num_blocks, pfrb_b=model.num_blocks, pfnl_tail=1)
     per_batch = {k: counts[k] / n_batches for k in KERNELS}
     print(f"[4 e2e] launches over {n_batches} forward batches: {counts}; per batch {per_batch}",
           flush=True)
@@ -435,11 +504,14 @@ def phase_bwd_kernels(card):
                 p2 = cuda_time_ms(lambda: plain(*args))
                 ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
                 f = flop[name]
+                bound_ms, bound_by = bound(f, nbytes(args, got), key)
                 print(f"[5a time] {name} {key} {list(shape)}: kernel {ms:.3f} ms "
                       f"({f / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms "
-                      f"({f / plain_ms / 1e9:.2f} TFLOP/s) on {card}", flush=True)
+                      f"({f / plain_ms / 1e9:.2f} TFLOP/s); bound {bound_ms:.3f} ms "
+                      f"({bound_by}) on {card}", flush=True)
                 if shape == BWD_SHAPES[0] and dt == torch.float32:
-                    results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                    results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return results
 
 
@@ -546,9 +618,9 @@ def phase_train_fit(card):
               f"{ {k: v / FIT_STEPS for k, v in counts.items()} } on {card}", flush=True)
         if not finite or not losses:
             fail(f"{path}: non-finite or missing losses {losses}")
-        want = {k: 0 for k in KERNELS} if plain else {
-            "nonlocal_flash": 0, "pfrb_a": 20, "pfrb_b": 20, "pfnl_tail": 1, "pfrb_bwd_b": 20,
-            "pfrb_bwd_a": 20, "bounded_splat": 0, "spmc_splat": 0}
+        want = {k: 0 for k in KERNELS}
+        if not plain:
+            want.update(pfrb_a=20, pfrb_b=20, pfnl_tail=1, pfrb_bwd_b=20, pfrb_bwd_a=20)
         if any(counts[k] != want[k] * FIT_STEPS for k in KERNELS):
             fail(f"{path}: launch counts {counts} != {want} x {FIT_STEPS} steps")
         out[path] = dict(counts=counts, steps_per_s=FIT_STEPS / wall, peak=peak)
@@ -560,22 +632,28 @@ def phase_train_fit(card):
     return out["kernels"]["counts"]
 
 
-def phase_y_serving(card):
-    """6: each Y family serves the degraded clip through test_video_lr."""
-    from pfnl_tpu_torch.infer.predictor import (MemoryFrames, Predictor, _clipped_windows,
-                                                to_uint8_img)
-    from pfnl_tpu_torch.infer.profile_serving import seeded_model
-    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+def degraded_clip():
+    """The seeded clip degraded on the device to 180x320, as uint8 blur4/
+    frames in memory, and the float frames the Predictor reads from them."""
+    from pfnl_tpu_torch.infer.predictor import to_uint8_img
     from pfnl_tpu_torch.ops.degrade import downsample_4d
-    from pfnl_tpu_torch.ops.resize import resize_bicubic
 
-    hr_h, hr_w = H * 4, W * 4
-    clip = synthetic_clip(CLIP_FRAMES, hr_h, hr_w, SEED)
+    clip = synthetic_clip(CLIP_FRAMES, H * 4, W * 4, SEED)
     with torch.inference_mode():
         lr = downsample_4d(torch.from_numpy(clip).cuda().float() / 255.0, scale=4)
     lr_u8 = to_uint8_img(lr.cpu().numpy())
     lr_frames = {f"clip/blur4/{i:04d}.png": lr_u8[i] for i in range(CLIP_FRAMES)}
-    lrs = lr_u8.astype(np.float32) / 255.0                # what the Predictor reads
+    return lr_frames, lr_u8.astype(np.float32) / 255.0
+
+
+def phase_y_serving(card, lr_frames, lrs):
+    """6: each Y family serves the degraded clip through test_video_lr."""
+    from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor, _clipped_windows
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.ops.resize import resize_bicubic
+
+    hr_h, hr_w = H * 4, W * 4
     n_batches = -(-CLIP_FRAMES // BATCH_WINDOWS)
     total = {k: 0 for k in KERNELS}
     for fam, (splat_kernel, adds_bicubic) in Y_FAMILIES.items():
@@ -644,6 +722,205 @@ def phase_y_serving(card):
     return total
 
 
+def _duf_case(gen, f, g, mode, lo, hi, dt):
+    """A block's parameters, and a [B,7,H,W,F+G+16] buffer of dt that holds
+    values in the block's input window (planes [lo, hi), channels < F) and
+    NaN everywhere else."""
+    from pfnl_tpu_torch.ops.duf_ref import BlockParams
+
+    p = BlockParams(sa=torch.rand(f, generator=gen, device="cuda") + 0.5,
+                    oa=_rand((f,), gen, 0.3), wa=_rand((f, f), gen, f ** -0.5),
+                    sb=torch.rand(f, generator=gen, device="cuda") + 0.5,
+                    ob=_rand((f,), gen, 0.3), wb=_rand((3, 3, 3, f, g), gen, (27 * f) ** -0.5),
+                    bb=_rand((g,), gen, 0.1), mode=mode)
+    buf = torch.full((B, T, H, W, f + g + 16), float("nan"), device="cuda", dtype=dt)
+    buf[:, lo:hi, :, :, :f] = _rand((B, hi - lo, H, W, f), gen, dist="uniform").to(dt)
+    return p, buf
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def _timed(kernel, plain):
+    """(kernel ms, plain ms), each the mean of two runs of 3 calls taken in
+    turns plain, kernel, kernel, plain, after a warm-up."""
+    kernel(), plain()
+    p1 = cuda_time_ms(plain)
+    k1, k2 = cuda_time_ms(kernel), cuda_time_ms(kernel)
+    p2 = cuda_time_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def phase_duf_kernels(card):
+    """7a: kernels 9 and 10 against their plain versions at DUF's shapes."""
+    from pfnl_tpu_torch.ops.cuda.duf_block import dense_block
+    from pfnl_tpu_torch.ops.cuda.duf_dense import duf_dense
+    from pfnl_tpu_torch.ops.duf_ref import block_out_planes, conv3x3x3_ref, dense_block_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    results = {}
+    for label, f, g, mode, lo, hi in DUF_CASES:
+        olo, ohi = block_out_planes(mode, lo, hi)
+        n_in, n_out, hw = hi - lo, ohi - olo, B * H * W
+        new = (slice(None), slice(olo, ohi), slice(None), slice(None), slice(f, f + g))
+        conv_flop = 2.0 * hw * n_out * 27 * f * g
+        flop = {"duf_block": 2.0 * hw * n_in * f * f + conv_flop, "duf_dense": conv_flop}
+        for dt in (torch.float32, torch.bfloat16):
+            key = str(dt).replace("torch.", "")
+            p, buf = _duf_case(gen, f, g, mode, lo, hi, dt)
+            scratch = torch.full((hw * n_in * f,), float("nan"), device="cuda", dtype=dt)
+            got, ref = buf.clone(), buf.clone()
+            dense_block(got, p, lo, hi, scratch)
+            dense_block_ref(ref, p, lo, hi)
+            x = buf[:, lo:hi, :, :, :f].contiguous()
+            got10, ref10 = duf_dense(x, p.wb, mode == "thw"), conv3x3x3_ref(x, p.wb, mode == "thw")
+            torch.cuda.synchronize()
+            written = torch.zeros(buf.shape, dtype=torch.bool, device="cuda")
+            written[new] = True
+            finite = bool(torch.isfinite(got[new]).all())
+            kept = torch.equal(_bits(got)[~written], _bits(buf)[~written])
+            errs = {"duf_block": _max_errs(got[new], ref[new]), "duf_dense": _max_errs(got10, ref10)}
+            for name, (abs_err, rel_err) in errs.items():
+                ok = rel_err <= TOL[key]
+                extra = (f"; new channels finite: {finite}, the rest of the NaN-poisoned buffer "
+                         f"bitwise unchanged: {kept}") if name == "duf_block" else ""
+                print(f"[7a kernel] {name} {label} (F {f}, G {g}, {mode}, planes [{lo},{hi})) "
+                      f"{key}: max_abs_err {abs_err:.3e}, max_rel_err {rel_err:.3e} (tolerance "
+                      f"{TOL[key]:.0e} of max|plain|) {'ok' if ok else 'DISAGREES'}{extra}",
+                      flush=True)
+                if not ok:
+                    fail(f"{name} {label} {key} disagrees with its plain version")
+            if not (finite and kept):
+                fail(f"duf_block {label} {key}: read outside its window or wrote outside [F, F+G)")
+            if dt != torch.bfloat16:
+                continue
+            wc = p.wb.to(dt).permute(4, 3, 0, 1, 2)
+            xc = x.permute(0, 4, 1, 2, 3)
+            pad = (1 if mode == "thw" else 0, 1, 1)
+            library = lambda: torch.nn.functional.conv3d(xc, wc, padding=pad)
+            library_ms = (cuda_time_ms(library) + cuda_time_ms(library)) / 2
+            times = {
+                "duf_block": _timed(lambda: dense_block(got, p, lo, hi, scratch),
+                                    lambda: dense_block_ref(ref, p, lo, hi)),
+                "duf_dense": _timed(lambda: duf_dense(x, p.wb, mode == "thw"),
+                                    lambda: conv3x3x3_ref(x, p.wb, mode == "thw"))}
+            params = nbytes(*p[:7])
+            nbyte = {"duf_block": nbytes(x, got[new]) + params,
+                     "duf_dense": nbytes(x, got10, p.wb)}
+            for name, (ms, plain_ms) in times.items():
+                bound_ms, bound_by = bound(flop[name], nbyte[name], key)
+                lib = library_ms if name == "duf_dense" else None
+                lib_note = f", F.conv3d {lib:.3f} ms" if lib is not None else ""
+                print(f"[7a time] {name} {label} bf16 [{B},{n_in},{H},{W},{f}] -> G {g}: kernel "
+                      f"{ms:.3f} ms ({flop[name] / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms"
+                      f"{lib_note}; bound {bound_ms:.3f} ms ({bound_by}; {flop[name] / 1e9:.1f} "
+                      f"GFLOP, {nbyte[name] / 1e6:.1f} MB) on {card}", flush=True)
+                if label == DUF_TIMED:
+                    results[name] = dict(max_abs_err=errs[name][0], ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
+            del got, ref, buf, scratch, x
+            torch.cuda.empty_cache()
+    return results
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_duf_serving(card, lr_frames, lrs):
+    """7b: DUF-52L serves the degraded clip through test_video_lr; then the
+    first window on the kernel paths against the float32 plain path."""
+    from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor, _clipped_windows
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.models import DUF
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+
+    hr_h, hr_w = H * 4, W * 4
+    n_batches = -(-CLIP_FRAMES // BATCH_WINDOWS)
+    model = seeded_model("duf", torch.bfloat16, SEED)
+    mem = MemoryFrames(lr_frames)
+    pred = Predictor(model, batch_windows=BATCH_WINDOWS, source=mem, sink=mem)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    chunk_s = pred.test_video_lr("clip", name="sr")
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in KERNELS}
+    want["duf_block"] = len(model.G.modes)
+    print(f"[7b duf] launches over {n_batches} forward batches: "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if any(counts[k] != want[k] * n_batches for k in KERNELS):
+        fail(f"duf: launch counts {counts} != {want} x {n_batches} batches")
+    outs = mem.list("clip/sr")
+    if len(outs) != CLIP_FRAMES:
+        fail(f"duf: {len(outs)} SR frames written, want {CLIP_FRAMES}")
+    for path in outs:
+        img = mem.read(path)
+        if img.shape != (hr_h, hr_w, 3) or img.dtype != np.uint8:
+            fail(f"duf {path}: {img.shape} {img.dtype}, want ({hr_h}, {hr_w}, 3) uint8")
+    fps = (CLIP_FRAMES - BATCH_WINDOWS) / float(np.sum(chunk_s[1:]))
+    print(f"[7b duf] DUF-{model.layers}L: {CLIP_FRAMES} HR frames {hr_h}x{hr_w} in {wall:.2f} s "
+          f"wall (batches {', '.join(f'{t:.3f}' for t in chunk_s)} s); steady {fps:.2f} HR "
+          f"frames/s; peak memory {peak / 2**30:.2f} GiB on {card}", flush=True)
+
+    x = torch.from_numpy(lrs[_clipped_windows(CLIP_FRAMES, model.num_frames)[0]][None]).cuda()
+    model32 = DUF(dtype=torch.float32).cuda().eval()
+    model32.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        sr = {"bfloat16": model(x), "float32": model32(x)}
+        ref = model32(x, plain=True)
+        feats = {"bfloat16": model.G.features(x.bfloat16()), "float32": model32.G.features(x)}
+        ref_feat = model32.G.features(x, plain=True)
+    torch.cuda.synchronize()
+    if sr["bfloat16"].shape != (1, 1, hr_h, hr_w, 3) or not torch.isfinite(sr["bfloat16"]).all():
+        fail(f"duf: SR of the first window: shape {tuple(sr['bfloat16'].shape)} or non-finite")
+    for key in ("bfloat16", "float32"):
+        rel, rel_feat = _rel(sr[key], ref), _rel(feats[key], ref_feat)
+        sr_tol = E2E_TOL if key == "bfloat16" else TOL["float32"]
+        print(f"[7b duf] first window, {key} kernels vs f32 plain: SR rel L2 err {rel:.3e} "
+              f"(tolerance {sr_tol:.0e}), backbone output {tuple(ref_feat.shape)} rel L2 err "
+              f"{rel_feat:.3e} (tolerance {BACKBONE_TOL[key]:.0e}); max|SR| "
+              f"{ref.abs().max().item():.3e}, rms backbone {ref_feat.pow(2).mean().sqrt().item():.3e}",
+              flush=True)
+        if rel > sr_tol or rel_feat > BACKBONE_TOL[key]:
+            fail(f"duf: the {key} kernel path disagrees with the f32 plain path")
+    return counts, model, x, ref
+
+
+def phase_duf_pallas(card, model, x, ref):
+    """7c: the first window with conv3d_impl="pallas" (kernel 10 per growth conv)."""
+    from pfnl_tpu_torch.models import DUF
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+
+    serving = None
+    for dt in (torch.bfloat16, torch.float32):
+        key = str(dt).replace("torch.", "")
+        m = DUF(dtype=dt, conv3d_impl="pallas").cuda().eval()
+        m.load_state_dict(model.state_dict())
+        reset_launches()
+        with torch.inference_mode():
+            got = m(x)
+        torch.cuda.synchronize()
+        counts = {k: launches[k] for k in KERNELS}
+        rel = _rel(got, ref)
+        tol = E2E_TOL if dt == torch.bfloat16 else TOL["float32"]
+        print(f"[7c duf pallas] {key}: launches { {k: v for k, v in counts.items() if v} }; SR rel "
+              f"L2 err vs f32 plain {rel:.3e} (tolerance {tol:.0e}) on {card}", flush=True)
+        want = {k: 0 for k in KERNELS}
+        want["duf_dense"] = len(m.G.modes)
+        if counts != want:
+            fail(f"duf pallas: launch counts {counts} != {want}")
+        if rel > tol or not torch.isfinite(got).all():
+            fail(f"duf pallas: the {key} kernel-10 path disagrees with the f32 plain path")
+        serving = serving or counts            # the bf16 (serving) run's
+        del m
+    return serving
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -661,18 +938,26 @@ def main():
     results.update(phase_bwd_kernels(name))
     phase_train_gradients(name)
     train_counts = phase_train_fit(name)
-    y_counts = phase_y_serving(name)
+    lr_frames, lrs = degraded_clip()
+    y_counts = phase_y_serving(name, lr_frames, lrs)
+    results.update(phase_duf_kernels(name))
+    duf_counts, duf_model, window, ref = phase_duf_serving(name, lr_frames, lrs)
+    pallas_counts = phase_duf_pallas(name, duf_model, window, ref)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
     if leaked:
         fail(f"the port loaded JAX-side modules: {leaked[:5]}")
 
+    path_launches = {k: counts[k] + train_counts[k] + y_counts[k] for k in TPU_KERNEL}
+    path_launches.update(duf_block=duf_counts["duf_block"], duf_dense=pallas_counts["duf_dense"])
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],
-                    launches=counts[k] + train_counts[k] + y_counts[k],
-                    max_abs_err=results[k]["max_abs_err"],
-                    ms=results[k]["ms"], plain_ms=results[k]["plain_ms"])
+                    launches=path_launches[k], **{f: results[k][f] for f in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                    timed=TIMED[k])
                for k in TPU_KERNEL]
+    if not all(kern["launches"] for kern in kernels):
+        fail(f"a kernel was not launched on its path: {path_launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -1,6 +1,6 @@
 """Command line of the port — counterpart of `run.py test` and `run.py train`:
 
-    python -m pfnl_tpu_torch test {pfnl,vespcn,mcresnet,ltdvsr,drvsr} --data DIR
+    python -m pfnl_tpu_torch test {pfnl,vespcn,mcresnet,ltdvsr,drvsr,duf} --data DIR
         [--weights params.npz] [--compute-dtype bfloat16] [--device cuda]
         [--start 0] [--name NAME]
     python -m pfnl_tpu_torch train pfnl --train-list F [--eval-list F]
@@ -10,10 +10,11 @@
 
 `test` super-resolves every sequence of a dataset directory into
 `DIR/<seq>/<NAME>/*.png`: PFNL degrades `DIR/<seq>/truth/*.png` on the
-device, the Y-channel families (vespcn, mcresnet, ltdvsr, drvsr) read the
-pre-rendered `DIR/<seq>/blur4/*.png`, as the reference does.  `--weights`
-is a flat `.npz` of '/'-joined flax parameter paths; without it the
-weights are random, drawn from `--seed`.
+device, the Y-channel families (vespcn, mcresnet, ltdvsr, drvsr) and DUF
+(52 layers) read the pre-rendered `DIR/<seq>/blur4/*.png`, as the JAX
+package does.  `--weights` is a flat `.npz` of '/'-joined flax paths (for
+DUF with its BatchNorm state: `params/...` and `batch_stats/...`); without
+it the weights are random, drawn from `--seed`.
 
 `train` trains from the sequences of a filelist (the paper config by
 default: batch 16, LR crop 32, 7 frames, float32), saving checkpoints and

@@ -1,10 +1,9 @@
 """Frame stores: where the port reads frames from and writes them to.
 
-`PngFrames` (the default) is PNG files on disk through
-pfnl_tpu.utils.image_io (cv2 or PIL, imported on first use).
-`MemoryFrames` holds uint8 [H,W,3] frames in a dict keyed by path, for
-machines without a PNG codec.  Both offer list(directory), read(path) and
-write(path, img).
+`PngFrames` (the default) is PNG files on disk through the port's
+utils/image_io.py (cv2 or PIL, imported on first use).  `MemoryFrames`
+holds uint8 [H,W,3] frames in a dict keyed by path, for machines without a
+PNG codec.  Both offer list(directory), read(path) and write(path, img).
 """
 
 import glob
@@ -12,9 +11,11 @@ import os
 
 import numpy as np
 
+from pfnl_tpu_torch.utils.image_io import imread, imsave
+
 
 class PngFrames:
-    """PNG frames on disk, through pfnl_tpu.utils.image_io."""
+    """PNG frames on disk."""
 
     @staticmethod
     def list(directory: str):
@@ -22,14 +23,10 @@ class PngFrames:
 
     @staticmethod
     def read(path: str) -> np.ndarray:
-        from pfnl_tpu.utils.image_io import imread
-
         return imread(path)
 
     @staticmethod
     def write(path: str, img: np.ndarray) -> None:
-        from pfnl_tpu.utils.image_io import imsave
-
         os.makedirs(os.path.dirname(path), exist_ok=True)
         imsave(path, img)
 

@@ -9,12 +9,12 @@ reference's public surface:
     (model/vespcn.py:298).
   * testvideos(path, start, name, from_truth): every sequence of a dataset
     directory (model/pfnl.py:322-332); PFNL degrades `truth/`, the Y
-    families read `blur{scale}/`, unless from_truth says otherwise.
+    families and DUF read `blur{scale}/`, unless from_truth says otherwise.
 
 Every family runs edge-clamped temporal windows in batches, its LR
 frames edge-padded to a multiple of the model's `lr_multiple` and its HR
 output cropped back.  What differs is read from the model:
-  * y_channel: False (PFNL) saves the model's RGB output as it comes; True
+  * y_channel: False (PFNL, DUF) saves the model's RGB output as it comes; True
     (VESPCN, MCResNet, LTDVSR, DRVSR) serves through `serve_rgb`, which
     pairs the SR Y of the last output frame with the bicubically upscaled
     CbCr of the centre frame and converts back to RGB
@@ -63,9 +63,18 @@ def serve_rgb(model, clip: torch.Tensor, plain: bool = False) -> torch.Tensor:
     return ycbcr2rgb(torch.cat([sr_y, cbcr], -1))
 
 
+def serve(model, clip: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """A window batch [B,T,h,w,3] through the model's whole serving program
+    -> RGB [B,H,W,3] float32: `serve_rgb` for a Y family, the model's own
+    RGB output otherwise (PFNL, DUF)."""
+    if model.y_channel:
+        return serve_rgb(model, clip, plain)
+    return model(clip, plain=plain)[:, 0]
+
+
 class Predictor:
     def __init__(self, model, batch_windows: int = 4, source=None, sink=None):
-        """model: a window model of one family (PFNL: [N,T,h,w,3] ->
+        """model: a window model of one family (PFNL, DUF: [N,T,h,w,3] ->
         [N,1,Sh,Sw,3]; a Y family: a dict whose "sr" is [N,T',Sh,Sw,1])
         with the serving attributes above, whose parameters sit on the
         device to run on.  batch_windows: the
@@ -131,7 +140,7 @@ class Predictor:
             st = time.time()
             with torch.inference_mode():
                 clip = torch.from_numpy(lrs[sel]).to(self.device)
-                sr = serve_rgb(self.model, clip) if self.model.y_channel else self.model(clip)[:, 0]
+                sr = serve(self.model, clip)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             sr = sr.cpu().numpy()
@@ -161,8 +170,8 @@ class Predictor:
     def testvideos(self, path: str, start: int = 0, name: str = "result",
                    from_truth: bool = None):
         """Every sequence subdirectory from index `start` on.  from_truth
-        defaults to the model's reads_truth, the reference's behaviour:
-        PFNL degrades truth/, the Y families read blur{scale}/."""
+        defaults to the model's reads_truth, the JAX package's behaviour:
+        PFNL degrades truth/, the Y families and DUF read blur{scale}/."""
         if from_truth is None:
             from_truth = self.model.reads_truth
         run = self.test_video_truth if from_truth else self.test_video_lr

@@ -1,19 +1,23 @@
-"""Where the time goes in a Y family's serving batch on a CUDA device.
+"""Where the time goes in a serving batch of a Y family or DUF on a CUDA device.
 
-    python -m pfnl_tpu_torch.infer.profile_serving [--families vespcn drvsr ...]
+    python -m pfnl_tpu_torch.infer.profile_serving [--families vespcn drvsr duf ...]
 
-For each family at full width, bf16, seeded random weights, one batch of
-`--batch` windows at LR `--lr` (default 180x320 -> 720x1280), it prints:
+For each family at full width, bf16, seeded random weights (for DUF also
+seeded BatchNorm statistics), one batch of `--batch` windows at LR `--lr`
+(default 180x320 -> 720x1280), it prints:
 
   * forward ms on the kernel path and on the plain path (`plain=True`):
     CUDA events around `model(x)`, mean of 5 (kernel) or 3 (plain) calls
     after a warm-up;
-  * serve_rgb ms (events, mean of 5) and the device's busy share of it: the
-    self device time of every CUDA kernel `torch.profiler` records over two
-    `serve_rgb` calls, halved, over the event time of one call;
-  * that kernel time split by kernel name into splat kernels, convolutions
-    (cuDNN, CUTLASS, GEMM), layout copies (NCHW<->NHWC, copies,
-    transposes) and the rest (elementwise), and the five largest kernels;
+  * serve ms (`infer.predictor.serve`: `serve_rgb` for a Y family, the
+    model's RGB output for DUF; events, mean of 5) and the device's busy
+    share of it: the self device time of every CUDA kernel
+    `torch.profiler` records over two `serve` calls, halved, over the
+    event time of one call;
+  * that kernel time split by kernel name into the port's kernels (the
+    splats; DUF's dense block), convolutions (cuDNN, CUTLASS, GEMM),
+    layout copies (NCHW<->NHWC, copies, transposes) and the rest
+    (elementwise), and the five largest kernels;
   * the Predictor's host tail of one batch on the host clock: the float32
     download, then uint8 rounding and the in-memory sink per frame.
 """
@@ -25,22 +29,35 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pfnl_tpu_torch.infer.predictor import MemoryFrames, serve_rgb, to_uint8_img
+from pfnl_tpu_torch.infer.predictor import MemoryFrames, serve, to_uint8_img
 from pfnl_tpu_torch.models import MODEL_REGISTRY
 
 Y_FAMILIES = ("vespcn", "drvsr", "mcresnet", "ltdvsr")
+FAMILIES = Y_FAMILIES + ("duf",)
 
 
-def seeded_model(family: str, dtype: torch.dtype, seed: int, device="cuda"):
-    """A family at full width: the port's random init from `seed`, then
-    every bias and PReLU slope (flax starts them at 0) drawn from
-    N(0, 0.05^2), so that a bias bug cannot hide."""
-    model = MODEL_REGISTRY[family](dtype=dtype, generator=torch.Generator().manual_seed(seed))
+def seeded_model(family: str, dtype: torch.dtype, seed: int, device="cuda", **kwargs):
+    """A family at full width (or as `kwargs` set it): the port's random
+    init from `seed`, then every bias, PReLU slope and BatchNorm offset
+    (flax starts them at 0) drawn from N(0, 0.05^2), so that a bias bug
+    cannot hide.  DUF's BatchNorms also get gamma 1 + N(0, 0.05^2) and
+    seeded statistics, moving_mean N(0, 0.1^2) and moving_variance
+    U(0.5, 1.5), which keep the activations O(1) (the init's variance of 0
+    makes them about 1e17)."""
+    model = MODEL_REGISTRY[family](dtype=dtype, generator=torch.Generator().manual_seed(seed),
+                                   **kwargs)
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(("bias", "alpha")):
+            if name.endswith(("bias", "alpha", ".b", ".beta")):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+            elif name.endswith(".gamma"):
+                p.copy_(1 + torch.randn(p.shape, generator=gen) * 0.05)
+        for name, b in model.named_buffers():
+            if name.endswith(".moving_mean"):
+                b.copy_(torch.randn(b.shape, generator=gen) * 0.1)
+            elif name.endswith(".moving_variance"):
+                b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
     return model.to(device).eval()
 
 
@@ -57,8 +74,8 @@ def _event_ms(fn, reps):
 def _category(key: str) -> str:
     k = key.lower()
     layout = any(t in k for t in ("nchwtonhwc", "nhwctonchw"))
-    if "splat" in k:
-        return "splat kernel"
+    if "splat" in k or "duf_" in k:
+        return "port kernel"
     if any(t in k for t in ("conv", "xmma", "cutlass", "gemm", "cudnn")) and not layout:
         return "convolution"
     if layout or any(t in k for t in ("copy", "transpose")):
@@ -70,18 +87,18 @@ def profile_family(family: str, batch: int, h: int, w: int, seed: int = 0):
     model = seeded_model(family, torch.bfloat16, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.rand((batch, model.num_frames, h, w, 3), generator=gen, device="cuda")
-    kw = model.serve_kwargs
+    kw = model.serve_kwargs if model.y_channel else {}
     with torch.inference_mode():
         model(x, **kw)
         model(x, plain=True, **kw)
-        serve_rgb(model, x)
+        serve(model, x)
         torch.cuda.synchronize()
         fwd = _event_ms(lambda: model(x, **kw), 5)
         plain_fwd = _event_ms(lambda: model(x, plain=True, **kw), 3)
-        srv = _event_ms(lambda: serve_rgb(model, x), 5)
+        srv = _event_ms(lambda: serve(model, x), 5)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
-                serve_rgb(model, x)
+                serve(model, x)
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -90,7 +107,7 @@ def profile_family(family: str, batch: int, h: int, w: int, seed: int = 0):
         for e in kern:
             cats[_category(e.key)] = cats.get(_category(e.key), 0) + e.self_device_time_total
 
-        dev = serve_rgb(model, x)
+        dev = serve(model, x)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         arr = dev.cpu().numpy()
@@ -102,7 +119,7 @@ def profile_family(family: str, batch: int, h: int, w: int, seed: int = 0):
 
     total = sum(cats.values()) or 1.0
     print(f"== {family}: {batch} windows, LR {h}x{w}, bf16; forward {fwd:.3f} ms (plain path "
-          f"{plain_fwd:.3f} ms), serve_rgb {srv:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"{plain_fwd:.3f} ms), serve {srv:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({busy_ms / srv:.1%})", flush=True)
     print("kernel time: " + ", ".join(f"{c} {v / total:.1%}" for c, v in
                                       sorted(cats.items(), key=lambda kv: -kv[1])), flush=True)
@@ -115,7 +132,7 @@ def profile_family(family: str, batch: int, h: int, w: int, seed: int = 0):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--families", nargs="+", default=list(Y_FAMILIES), choices=Y_FAMILIES)
+    ap.add_argument("--families", nargs="+", default=list(Y_FAMILIES), choices=FAMILIES)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--lr", type=int, nargs=2, default=(180, 320), metavar=("H", "W"))
     args = ap.parse_args(argv)

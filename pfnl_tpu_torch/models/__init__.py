@@ -1,12 +1,13 @@
-"""Model families of the port: PFNL and the Y-channel flow families."""
+"""Model families of the port: PFNL, the Y-channel flow families and DUF."""
 
 from pfnl_tpu_torch.models.drvsr import DRVSR
+from pfnl_tpu_torch.models.duf import DUF
 from pfnl_tpu_torch.models.ltdvsr import LTDVSR
 from pfnl_tpu_torch.models.mcresnet import MCResNet
 from pfnl_tpu_torch.models.pfnl import PFNL
 from pfnl_tpu_torch.models.vespcn import VESPCN
 
 MODEL_REGISTRY = {"pfnl": PFNL, "vespcn": VESPCN, "mcresnet": MCResNet, "ltdvsr": LTDVSR,
-                  "drvsr": DRVSR}
+                  "drvsr": DRVSR, "duf": DUF}
 
-__all__ = ["PFNL", "VESPCN", "MCResNet", "LTDVSR", "DRVSR", "MODEL_REGISTRY"]
+__all__ = ["PFNL", "VESPCN", "MCResNet", "LTDVSR", "DRVSR", "DUF", "MODEL_REGISTRY"]

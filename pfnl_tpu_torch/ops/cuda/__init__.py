@@ -4,25 +4,30 @@ Each wrapper runs its plain PyTorch version on a CPU tensor and launches
 its kernel on a CUDA tensor (or raises); there is no fallback from one to
 the other.  A kernel records no autograd graph, so on a CUDA tensor a
 wrapper raises when grad is enabled and an input requires it; training
-reaches kernels 2-6 through ops/pfrb_chain.py and `merge_tail`.
-`launches` counts kernel launches by name:
+reaches kernels 2-6 through ops/pfrb_chain.py and `merge_tail`, kernel 10
+through `conv3x3x3`.  `launches` counts calls that launch a kernel, by
+name (kernels 4 and 9 are two launches from one call, counted once):
 
-  nonlocal_flash  kernel 1  ops/cuda/nonlocal_flash.py  csrc/nonlocal_flash.cu
-  pfrb_a          kernel 2  ops/cuda/pfrb.py            csrc/pfrb.cu
-  pfrb_b          kernel 3  ops/cuda/pfrb.py            csrc/pfrb.cu
-  pfnl_tail       kernel 4  ops/cuda/pfnl_tail.py       csrc/pfnl_tail.cu
-  pfrb_bwd_b      kernel 5  ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
-  pfrb_bwd_a      kernel 6  ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
-  bounded_splat   kernel 7  ops/cuda/bounded_splat.py   csrc/bounded_splat.cu
-  spmc_splat      kernel 8  ops/cuda/spmc_splat.py      csrc/spmc_splat.cu
+  nonlocal_flash  kernel 1   ops/cuda/nonlocal_flash.py  csrc/nonlocal_flash.cu
+  pfrb_a          kernel 2   ops/cuda/pfrb.py            csrc/pfrb.cu
+  pfrb_b          kernel 3   ops/cuda/pfrb.py            csrc/pfrb.cu
+  pfnl_tail       kernel 4   ops/cuda/pfnl_tail.py       csrc/pfnl_tail.cu
+  pfrb_bwd_b      kernel 5   ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
+  pfrb_bwd_a      kernel 6   ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
+  bounded_splat   kernel 7   ops/cuda/bounded_splat.py   csrc/bounded_splat.cu
+  spmc_splat      kernel 8   ops/cuda/spmc_splat.py      csrc/spmc_splat.cu
+  duf_block       kernel 9   ops/cuda/duf_block.py       csrc/duf_block.cu, duf_conv.cuh
+  duf_dense       kernel 10  ops/cuda/duf_dense.py       csrc/duf_dense.cu, duf_conv.cuh
 
 Kernels 1-6 serve PFNL; 7 and 8 the flow families, reached through
-ops/warp.py's `forward_warp_local` and `forward_warp_spmc`.
+ops/warp.py's `forward_warp_local` and `forward_warp_spmc`; 9 and 10 DUF's
+dense blocks (models/duf.py: 9 for the whole backbone, 10 per growth conv
+with conv3d_impl="pallas").
 """
 
 from pfnl_tpu_torch.ops.cuda._build import launches, reset_launches
 
 KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a",
-           "bounded_splat", "spmc_splat")
+           "bounded_splat", "spmc_splat", "duf_block", "duf_dense")
 
 __all__ = ["KERNELS", "launches", "reset_launches"]

@@ -17,6 +17,14 @@ def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.reshape(n, h * r, w * r, c)
 
 
+def depth_to_space_3d(x: torch.Tensor, r: int) -> torch.Tensor:
+    """[N,T,H,W,C*r*r] -> [N,T,H*r,W*r,C]: T folded into the batch
+    (reference utils.py:320-328)."""
+    n, t, h, w, crr = x.shape
+    y = depth_to_space(x.reshape(n * t, h, w, crr), r)
+    return y.reshape(n, t, h * r, w * r, crr // (r * r))
+
+
 def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
     """[N,H*r,W*r,C] -> [N,H,W,C*r*r], inverse of depth_to_space."""
     n, hr, wr, c = x.shape

@@ -13,16 +13,20 @@ per output, so they differ by a few bf16 ulps (2^-8 relative each).
 import pytest
 import torch
 
-from pfnl_tpu_torch.models import DRVSR, LTDVSR, MCResNet, VESPCN
+from pfnl_tpu_torch.infer.profile_serving import seeded_model
+from pfnl_tpu_torch.models import DRVSR, DUF, LTDVSR, MCResNet, VESPCN
 from pfnl_tpu_torch.models.blocks import NonLocalBlock
 from pfnl_tpu_torch.models.pfnl import PFNL
 from pfnl_tpu_torch.ops.cuda import launches, reset_launches
 from pfnl_tpu_torch.ops.cuda.bounded_splat import bounded_splat
+from pfnl_tpu_torch.ops.cuda.duf_block import dense_block
+from pfnl_tpu_torch.ops.cuda.duf_dense import conv3x3x3, duf_dense
 from pfnl_tpu_torch.ops.cuda.nonlocal_flash import nonlocal_flash
 from pfnl_tpu_torch.ops.cuda.pfnl_tail import pfnl_tail
 from pfnl_tpu_torch.ops.cuda.pfrb import pfrb_a, pfrb_b
 from pfnl_tpu_torch.ops.cuda.pfrb_bwd import pfrb_bwd_a, pfrb_bwd_b
 from pfnl_tpu_torch.ops.cuda.spmc_splat import spmc_splat
+from pfnl_tpu_torch.ops.duf_ref import BlockParams, conv3x3x3_ref, dense_block_ref
 from pfnl_tpu_torch.ops.losses import charbonnier
 from pfnl_tpu_torch.ops.nonlocal_attn import nonlocal_attention_chunked
 from pfnl_tpu_torch.ops.pfrb_ref import (pfnl_tail_ref, pfrb_a_ref, pfrb_b_ref, pfrb_bwd_a_ref,
@@ -278,3 +282,111 @@ def test_splat_wrappers_reject_what_the_kernels_do_not_take(gen):
         spmc_splat(im, uv, 2, 2)                               # scale other than 4
     with pytest.raises(RuntimeError, match="autograd"):
         spmc_splat(im.clone().requires_grad_(), uv, 4, 2)
+
+
+def _duf_block_params(gen, f, g, mode):
+    return BlockParams(sa=torch.rand(f, generator=gen, device="cuda") + 0.5,
+                       oa=_randn(gen, f, scale=0.3), wa=_randn(gen, f, f, scale=f ** -0.5),
+                       sb=torch.rand(f, generator=gen, device="cuda") + 0.5,
+                       ob=_randn(gen, f, scale=0.3),
+                       wb=_randn(gen, 3, 3, 3, f, g, scale=(27 * f) ** -0.5),
+                       bb=_randn(gen, g, scale=0.1), mode=mode)
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f,g,mode,lo,hi", [(64, 16, "thw", 0, 7), (96, 16, "thw", 0, 5),
+                                            (80, 32, "hw", 1, 6), (48, 32, "thw", 0, 3)])
+def test_duf_block_kernel(gen, dtype, f, g, mode, lo, hi):
+    """Kernel 9 at ragged tiles on a buffer that holds NaN wherever the block
+    may not read (other planes, channels >= F) and a NaN scratch: the new
+    channels are finite and within tolerance of the plain version, and
+    every other element of the buffer is bitwise unchanged."""
+    p = _duf_block_params(gen, f, g, mode)
+    buf = torch.full((2, 7, 13, 21, f + g + 8), float("nan"), device="cuda").to(dtype)
+    buf[:, lo:hi, :, :, :f] = torch.rand((2, hi - lo, 13, 21, f), generator=gen,
+                                         device="cuda").to(dtype)
+    scratch = torch.full((2 * 7 * 13 * 21 * f,), float("nan"), device="cuda").to(dtype)
+    got, ref = buf.clone(), buf.clone()
+    reset_launches()
+    dense_block(got, p, lo, hi, scratch)
+    assert dict(launches) == {"duf_block": 1}
+    dense_block_ref(ref, p, lo, hi)
+    olo, ohi = (lo, hi) if mode == "thw" else (lo + 1, hi - 1)
+    new = (slice(None), slice(olo, ohi), slice(None), slice(None), slice(f, f + g))
+    assert torch.isfinite(got[new]).all()
+    _assert_close(got[new], ref[new], dtype)
+    written = torch.zeros(buf.shape, dtype=torch.bool, device="cuda")
+    written[new] = True
+    assert torch.equal(_bits(got)[~written], _bits(buf)[~written])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pad_t", [True, False])
+@pytest.mark.parametrize("f,g", [(48, 16), (40, 32)])
+def test_duf_dense_kernel(gen, dtype, pad_t, f, g):
+    """Kernel 10 at ragged tiles and a ragged channel chunk (F = 40)."""
+    x = torch.rand((2, 5, 13, 21, f), generator=gen, device="cuda").to(dtype)
+    wk = _randn(gen, 3, 3, 3, f, g, scale=(27 * f) ** -0.5)
+    reset_launches()
+    got = duf_dense(x, wk, pad_t)
+    assert dict(launches) == {"duf_dense": 1}
+    _assert_close(got, conv3x3x3_ref(x, wk, pad_t), dtype)
+
+
+def test_duf_dense_backward_matches_plain_autograd(gen):
+    """conv3x3x3 on a tensor that requires grad: kernel 10 forward, the
+    plain conv's vector-Jacobian product backward."""
+    x = torch.rand((1, 5, 9, 11, 32), generator=gen, device="cuda")
+    wk = _randn(gen, 3, 3, 3, 32, 16, scale=0.05)
+    grads = []
+    for fn in (conv3x3x3, conv3x3x3_ref):
+        xg, wg = x.clone().requires_grad_(), wk.clone().requires_grad_()
+        reset_launches()
+        (fn(xg, wg, True) ** 2).sum().backward()
+        grads.append((xg.grad, wg.grad, dict(launches)))
+    assert grads[0][2] == {"duf_dense": 1} and grads[1][2] == {}
+    _assert_close(grads[0][:2], grads[1][:2], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_duf_kernel_paths_match_plain_path(gen, dtype):
+    """DUF-16L's forward: kernel 9 once per dense block ("auto", no grad), or
+    kernel 10 once per growth conv ("pallas"), against plain=True."""
+    model = seeded_model("duf", dtype, 0, layers=16)
+    x = torch.rand((2, 7, 20, 36, 3), generator=gen, device="cuda")
+    paths = {}
+    for impl, want in (("auto", {"duf_block": 6}), ("pallas", {"duf_dense": 6})):
+        m = DUF(layers=16, dtype=dtype, conv3d_impl=impl).cuda().eval()
+        m.load_state_dict(model.state_dict())
+        reset_launches()
+        with torch.inference_mode():
+            paths[impl] = m(x)
+            assert dict(launches) == want
+            ref = m(x, plain=True)
+        assert dict(launches) == want
+    assert ref.shape == (2, 1, 80, 144, 3)
+    for got in paths.values():
+        assert torch.isfinite(got).all()
+        err = ((got - ref).norm() / ref.norm()).item()
+        assert err <= TOL[dtype], err
+
+
+def test_duf_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    p = _duf_block_params(gen, 64, 16, "thw")
+    buf = torch.rand((1, 3, 8, 8, 96), generator=gen, device="cuda")
+    with pytest.raises(RuntimeError, match="autograd"):
+        dense_block(buf, p._replace(wa=p.wa.clone().requires_grad_()), 0, 3)
+    with pytest.raises(ValueError):
+        dense_block(buf[..., :72].contiguous(), p, 0, 3)              # F + G > C
+    with pytest.raises(ValueError):
+        dense_block(buf, p._replace(mode="hw"), 0, 2)                 # no output plane
+    with pytest.raises(TypeError):
+        dense_block(buf.half(), p, 0, 3)
+    with pytest.raises(ValueError):
+        duf_dense(buf[..., :64].contiguous(), _randn(gen, 3, 3, 3, 64, 24), True)  # G 24
+    with pytest.raises(RuntimeError, match="autograd"):
+        duf_dense(buf.clone().requires_grad_(), _randn(gen, 3, 3, 3, 96, 16), True)
