@@ -8,11 +8,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. the device: name, count, torch/CUDA versions, nvidia-smi name and
      power limit;
   2. build every kernel from csrc/ with nvcc; the build seconds and the
-     ptxas register / shared-memory / spill report;
+     ptxas register / shared-memory / spill report; the HMMA (tensor-core
+     mma) instructions in each kernel entry's SASS (cuobjdump -sass),
+     failing if a bf16 entry of kernel 1 or 10 has none;
   3. each kernel against its plain PyTorch version at the main path's
      shapes (PFNL 7 frames, LR 180x320, batch 2), in float32 (TF32 off on
      the plain side) and in bfloat16, with the tolerance stated, and the
-     time of each beside the plain version's (CUDA events, bf16); then
+     time of each beside the plain version's (CUDA events, bf16); kernel 1
+     bitwise equal over two launches, its TFLOP/s and its time over
+     scaled_dot_product_attention's; then
      the two splat kernels, 7 and 8, at their callers' shapes (K7: VESPCN
      [12,1,180,320] R=2, LTDVSR [20,1,180,320] R=1, FRVSR's HR grid
      [4,3,720,1280] R=1; K8: DRVSR [12,180,320] x4 R=2), each bitwise
@@ -53,10 +57,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
         plain versions at batch 2, LR 180x320, at the first block (F 64),
         the last SAME-T block (F 384), the last VALID-T block (F 432, T
         3 -> 1) and a 16L block (F 128, G 32), in float32 and bfloat16;
+        kernel 10 bitwise equal over two launches;
         kernel 9 on a buffer and scratch that hold NaN wherever the block
         may not read: the new channels are finite and every other element
-        is bitwise unchanged; times beside the plain versions', F.conv3d's
-        (kernel 10) and the bound;
+        is bitwise unchanged; times and TFLOP/s beside the plain versions',
+        F.conv3d's (kernel 10, with the ratio) and the bound;
      b. serving end to end: Predictor.test_video_lr over the clip degraded
         on the device to 180x320 (uint8 blur4/ frames in memory), batch 4
         windows; checks the 12 output frames, kernel 9's 24 launches per
@@ -84,6 +89,7 @@ device the script fails before printing any result.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -152,6 +158,9 @@ SOURCE = {
     "duf_block": "pfnl_tpu_torch/csrc/duf_block.cu",
     "duf_dense": "pfnl_tpu_torch/csrc/duf_dense.cu",
 }
+# phase 2: the kernel entries that must run on the tensor cores (a substring of the
+# mangled entry name: the bf16 entries of kernels 1 and 10, every instantiation)
+TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_mma_kernel", "duf_dense_bf16_mma_kernel")
 
 
 def fail(msg):
@@ -205,6 +214,46 @@ def phase_build():
         for line in f:
             if "Compiling entry function" in line or "Used" in line or "spill" in line:
                 print("  " + line.strip().replace("ptxas info    : ", ""))
+    counts = hmma_counts(_build.LIB, _build.tool)
+    names = _demangled(list(counts), _build.tool)
+    print(f"[2 sass] HMMA instructions per kernel entry (cuobjdump -sass {_build.LIB}):")
+    for mangled, n in counts.items():
+        print(f"  {n:5d}  {names[mangled]}")
+    for want in TENSOR_CORE_ENTRIES:
+        found = {k: n for k, n in counts.items() if want in k}
+        if not found or not all(found.values()):
+            fail(f"{want}: entries {found or 'missing'}; every one must hold HMMA instructions")
+
+
+def hmma_counts(lib, tool):
+    """{mangled kernel entry: HMMA instructions in its SASS}, from cuobjdump -sass."""
+    sass = subprocess.run([tool("cuobjdump"), "-sass", lib], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, entry = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = m.group(1)
+            counts[entry] = 0
+        elif entry is not None and "HMMA" in line:
+            counts[entry] += 1
+    return counts
+
+
+def _demangled(names, tool):
+    """{mangled: readable name without its parameter list}, by cu++filt where
+    the toolkit has it, else the mangled names."""
+    try:
+        out = subprocess.run([tool("cu++filt")], input="\n".join(names), capture_output=True,
+                             text=True, check=True, timeout=60).stdout.splitlines()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return {n: n for n in names}
+    if len(out) != len(names):
+        return {n: n for n in names}
+    # drop the namespace and the casts of template arguments ("(int)16"), then the parameters
+    short = (re.sub(r"\(anonymous namespace\)::|<unnamed>::|\((?:int|bool)\)", "", o).split("(")[0]
+             for o in out)
+    return dict(zip(names, short))
 
 
 def _rand(shape, gen, scale=1.0, dist="normal"):
@@ -276,14 +325,19 @@ def phase_kernels(card):
             args = make(dt)
             got = kernel(*args)
             ref = plain(*args)
+            # kernel 1 (tensor cores in bf16) also bitwise equal over two launches
+            same = torch.equal(got, kernel(*args)) if name == "nonlocal_flash" else None
             torch.cuda.synchronize()
             abs_err, rel_err = _max_errs(got, ref)
             ok = rel_err <= TOL[key]
+            note = "" if same is None else f"; bitwise equal over two launches: {same}"
             print(f"[3 kernel] {name} {key}: max_abs_err {abs_err:.3e}, max_rel_err "
                   f"{rel_err:.3e} (tolerance {TOL[key]:.0e} of max|plain|) "
-                  f"{'ok' if ok else 'DISAGREES'}", flush=True)
+                  f"{'ok' if ok else 'DISAGREES'}{note}", flush=True)
             if not ok:
                 fail(f"{name} {key} disagrees with its plain version")
+            if same is False:
+                fail(f"{name} {key}: two launches differ")
             res[key] = abs_err
         args = make(torch.bfloat16)
         for fn in (kernel, plain):  # warm-up
@@ -300,7 +354,7 @@ def phase_kernels(card):
             lib_err = _max_errs(lib(), plain(*args))[1]
             library_ms = cuda_time_ms(lib)
             lib_note = (f", scaled_dot_product_attention(scale=1) {library_ms:.3f} ms (max_rel_err "
-                        f"{lib_err:.3e} vs plain)")
+                        f"{lib_err:.3e} vs plain; kernel / library {ms / library_ms:.3f})")
         print(f"[3 time] {name} bf16 [{B},{T},{H},{W}]: kernel {ms:.3f} ms "
               f"({flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms "
               f"({flop / plain_ms / 1e9:.2f} TFLOP/s){lib_note}; bound {bound_ms:.3f} ms "
@@ -775,6 +829,7 @@ def phase_duf_kernels(card):
             dense_block_ref(ref, p, lo, hi)
             x = buf[:, lo:hi, :, :, :f].contiguous()
             got10, ref10 = duf_dense(x, p.wb, mode == "thw"), conv3x3x3_ref(x, p.wb, mode == "thw")
+            same10 = torch.equal(got10, duf_dense(x, p.wb, mode == "thw"))
             torch.cuda.synchronize()
             written = torch.zeros(buf.shape, dtype=torch.bool, device="cuda")
             written[new] = True
@@ -784,7 +839,8 @@ def phase_duf_kernels(card):
             for name, (abs_err, rel_err) in errs.items():
                 ok = rel_err <= TOL[key]
                 extra = (f"; new channels finite: {finite}, the rest of the NaN-poisoned buffer "
-                         f"bitwise unchanged: {kept}") if name == "duf_block" else ""
+                         f"bitwise unchanged: {kept}") if name == "duf_block" else (
+                             f"; bitwise equal over two launches: {same10}")
                 print(f"[7a kernel] {name} {label} (F {f}, G {g}, {mode}, planes [{lo},{hi})) "
                       f"{key}: max_abs_err {abs_err:.3e}, max_rel_err {rel_err:.3e} (tolerance "
                       f"{TOL[key]:.0e} of max|plain|) {'ok' if ok else 'DISAGREES'}{extra}",
@@ -793,6 +849,8 @@ def phase_duf_kernels(card):
                     fail(f"{name} {label} {key} disagrees with its plain version")
             if not (finite and kept):
                 fail(f"duf_block {label} {key}: read outside its window or wrote outside [F, F+G)")
+            if not same10:
+                fail(f"duf_dense {label} {key}: two launches differ")
             if dt != torch.bfloat16:
                 continue
             wc = p.wb.to(dt).permute(4, 3, 0, 1, 2)
@@ -811,7 +869,8 @@ def phase_duf_kernels(card):
             for name, (ms, plain_ms) in times.items():
                 bound_ms, bound_by = bound(flop[name], nbyte[name], key)
                 lib = library_ms if name == "duf_dense" else None
-                lib_note = f", F.conv3d {lib:.3f} ms" if lib is not None else ""
+                lib_note = (f", F.conv3d {lib:.3f} ms (kernel / library {ms / lib:.3f})"
+                            if lib is not None else "")
                 print(f"[7a time] {name} {label} bf16 [{B},{n_in},{H},{W},{f}] -> G {g}: kernel "
                       f"{ms:.3f} ms ({flop[name] / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms"
                       f"{lib_note}; bound {bound_ms:.3f} ms ({bound_by}; {flop[name] / 1e9:.1f} "

@@ -6,17 +6,34 @@
 // packs the nine spatial taps into the output columns of one dot ((dw, dh,
 // g) order, N = 9G lanes) so that G = 16 outputs fill the 128-lane MXU, DMAs
 // input planes through a 4-slot ring, and leaves the dh reduction to XLA.
-// Here it is the growth conv of kernel 9 without the pointwise chain: the
-// shared tile routine of duf_conv.cuh reads x [B, T, H, W, F] directly and
-// writes [B, T_out, H, W, G], one block per 8 x 16 pixel tile of an output
-// plane, float FMAs on CUDA cores.
+// None of that carries over: it answers the MXU's 128 lanes.
+//
+// bf16 (the serving dtype): an implicit GEMM on the tensor cores, the tile
+// of duf_conv_mma.cuh (mma.sync m16n8k16, M = output pixels, N = G, K = 27 F;
+// its head gives the operand roles, tiles and shared-memory layout).  It
+// reads x [B, T, H, W, F] directly and writes [B, T_out, H, W, G]; the
+// weights come as bf16 [27, F, G] (DHWIO as it is, rounded once by the
+// caller).  Products are summed in float32 and rounded once to bf16; the
+// TPU kernel rounds each dh group of products to the activation type before
+// XLA sums the three, so the two differ by a few bf16 ulps.  One block per
+// 8 x 32 pixel tile of an output plane; the grid puts the output plane
+// fastest, so the blocks that read an input plane (three output planes)
+// run together and share it through L2.  Sums run in a fixed order without
+// atomics: bitwise reproducible.
+//
+// float32 (tests and the float32 model; no float32 main path runs it): the
+// first design, the float-FMA tile of duf_conv.cuh that kernel 9 also runs,
+// one block per 8 x 16 pixel tile, weights as float [3,3,3,F,G].  Tensor
+// cores would mean TF32, which cannot hold the 1e-4 float32 check.
 //
 // Bound on the H100: 27 F G multiply-adds per output pixel (F = 64..432, G =
 // 16) against F + G elements moved: compute-bound at every DUF width
-// (about 0.14 TFLOP at F = 384, batch 2, 7 frames, LR 180x320).  Left for
-// later: tensor-core products; the growth conv has N = G = 16, so an
-// implicit GEMM with the 27 taps in K fits m16n8k16 tiles directly.
+// (267.5 GFLOP at F = 384, batch 2, 7 frames, LR 180x320: 0.27 ms at 989
+// TFLOP/s).  The bf16 tile is bound by shared-memory bandwidth (see its
+// head).  Left for later: wgmma with TMA-fed windows and warp
+// specialisation.
 #include "duf_conv.cuh"
+#include "duf_conv_mma.cuh"
 
 namespace {
 
@@ -50,12 +67,41 @@ int launch(const void* x, const float* wk, void* out, int nb, int t_in, int h, i
   return (int)cudaErrorInvalidValue;
 }
 
+using bf16 = __nv_bfloat16;
+
+// bf16: block (output plane, pixel tile, sample)
+template <int G, bool ASYNC>
+__global__ void __launch_bounds__(pfnl::Conv333Mma<G>::THREADS)
+duf_dense_bf16_mma_kernel(const bf16* __restrict__ x, int t_in, int h, int w, int f, int off,
+                          const bf16* __restrict__ wk, bf16* __restrict__ out, int t_out) {
+  extern __shared__ __align__(16) bf16 smem_bf16[];
+  pfnl::conv3x3x3_mma_tile<G, ASYNC>(x, t_in, h, w, f, f, off, wk, nullptr, out, t_out, 0, G, 0,
+                                     blockIdx.x, blockIdx.y, blockIdx.z, smem_bf16);
+}
+
+template <int G>
+int launch_mma(const void* x, const void* wk, void* out, int nb, int t_in, int h, int w, int f,
+               int pad_t, cudaStream_t stream) {
+  using C = pfnl::Conv333Mma<G>;
+  const int t_out = pad_t ? t_in : t_in - 2;
+  const bool async = f % 8 == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                                     reinterpret_cast<uintptr_t>(wk)) & 15) == 0;
+  auto k = async ? &duf_dense_bf16_mma_kernel<G, true> : &duf_dense_bf16_mma_kernel<G, false>;
+  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_BYTES);
+  const dim3 grid(t_out, C::tiles(h, w), nb);
+  k<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(static_cast<const bf16*>(x), t_in, h, w, f,
+                                                 pad_t ? -1 : 0, static_cast<const bf16*>(wk),
+                                                 static_cast<bf16*>(out), t_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes.  x [nb, t_in, h, w, f] and out [nb,
-// t_out, h, w, g] of float or bf16 (t_out = t_in, or t_in - 2 without
-// pad_t); wk [3,3,3,f,g] float32, already rounded to the activation type by
-// the caller; g is 16 or 32.  Returns cudaGetLastError() after the launch.
+// t_out, h, w, g] (t_out = t_in, or t_in - 2 without pad_t); g is 16 or 32.
+// float32: wk [3,3,3,f,g] float32; bf16: wk [3,3,3,f,g] bf16; either
+// already rounded to the activation type by the caller.  Returns
+// cudaGetLastError() after the launch.
 extern "C" {
 
 int pfnl_duf_dense_f32(const void* x, const float* wk, void* out, int nb, int t_in, int h, int w,
@@ -63,9 +109,12 @@ int pfnl_duf_dense_f32(const void* x, const float* wk, void* out, int nb, int t_
   return launch<float>(x, wk, out, nb, t_in, h, w, f, g, pad_t, stream);
 }
 
-int pfnl_duf_dense_bf16(const void* x, const float* wk, void* out, int nb, int t_in, int h, int w,
+int pfnl_duf_dense_bf16(const void* x, const void* wk, void* out, int nb, int t_in, int h, int w,
                         int f, int g, int pad_t, void* stream) {
-  return launch<__nv_bfloat16>(x, wk, out, nb, t_in, h, w, f, g, pad_t, stream);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (g == 16) return launch_mma<16>(x, wk, out, nb, t_in, h, w, f, pad_t, s);
+  if (g == 32) return launch_mma<32>(x, wk, out, nb, t_in, h, w, f, pad_t, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-"""Where the time goes in a serving batch of a Y family or DUF on a CUDA device.
+"""Where the time goes in a serving batch of PFNL, a Y family or DUF on a CUDA device.
 
-    python -m pfnl_tpu_torch.infer.profile_serving [--families vespcn drvsr duf ...]
+    python -m pfnl_tpu_torch.infer.profile_serving [--families pfnl vespcn drvsr duf ...]
 
 For each family at full width, bf16, seeded random weights (for DUF also
 seeded BatchNorm statistics), one batch of `--batch` windows at LR `--lr`
@@ -10,14 +10,15 @@ seeded BatchNorm statistics), one batch of `--batch` windows at LR `--lr`
     CUDA events around `model(x)`, mean of 5 (kernel) or 3 (plain) calls
     after a warm-up;
   * serve ms (`infer.predictor.serve`: `serve_rgb` for a Y family, the
-    model's RGB output for DUF; events, mean of 5) and the device's busy
-    share of it: the self device time of every CUDA kernel
+    model's RGB output for PFNL and DUF; events, mean of 5) and the
+    device's busy share of it: the self device time of every CUDA kernel
     `torch.profiler` records over two `serve` calls, halved, over the
     event time of one call;
-  * that kernel time split by kernel name into the port's kernels (the
-    splats; DUF's dense block), convolutions (cuDNN, CUTLASS, GEMM),
-    layout copies (NCHW<->NHWC, copies, transposes) and the rest
-    (elementwise), and the five largest kernels;
+  * that kernel time split by kernel name into the port's kernels (PFNL's
+    attention, PFRBs and tail; the splats; DUF's dense block and conv),
+    convolutions (cuDNN, CUTLASS, GEMM), layout copies (NCHW<->NHWC,
+    copies, transposes) and the rest (elementwise), and the five largest
+    kernels;
   * the Predictor's host tail of one batch on the host clock: the float32
     download, then uint8 rounding and the in-memory sink per frame.
 """
@@ -33,7 +34,9 @@ from pfnl_tpu_torch.infer.predictor import MemoryFrames, serve, to_uint8_img
 from pfnl_tpu_torch.models import MODEL_REGISTRY
 
 Y_FAMILIES = ("vespcn", "drvsr", "mcresnet", "ltdvsr")
-FAMILIES = Y_FAMILIES + ("duf",)
+FAMILIES = ("pfnl",) + Y_FAMILIES + ("duf",)
+# substrings of the port's kernel entry names (csrc/*.cu)
+PORT_KERNELS = ("nonlocal_flash", "pfrb_", "tail_", "splat", "duf_")
 
 
 def seeded_model(family: str, dtype: torch.dtype, seed: int, device="cuda", **kwargs):
@@ -74,7 +77,7 @@ def _event_ms(fn, reps):
 def _category(key: str) -> str:
     k = key.lower()
     layout = any(t in k for t in ("nchwtonhwc", "nhwctonchw"))
-    if "splat" in k or "duf_" in k:
+    if any(t in k for t in PORT_KERNELS):
         return "port kernel"
     if any(t in k for t in ("conv", "xmma", "cutlass", "gemm", "cudnn")) and not layout:
         return "convolution"

@@ -45,14 +45,15 @@ def reset_launches():
     launches.clear()
 
 
-def _nvcc() -> str:
+def tool(name: str) -> str:
+    """Path of the CUDA toolkit's program `name` (nvcc, cuobjdump, cu++filt)."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
+    path = os.path.join(home, "bin", name)
     if os.path.exists(path):
         return path
-    path = shutil.which("nvcc")
+    path = shutil.which(name)
     if path is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        raise RuntimeError(f"{name} not found: set CUDA_HOME or put {name} on PATH")
     return path
 
 
@@ -76,7 +77,7 @@ def build(force: bool = False) -> float:
         if not (force or _stale()):
             return 0.0
         os.makedirs(OBJ, exist_ok=True)
-        nvcc = _nvcc()
+        nvcc = tool("nvcc")
         t0 = time.perf_counter()
         objs, procs = [], []
         for src in sources():

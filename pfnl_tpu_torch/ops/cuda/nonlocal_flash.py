@@ -1,7 +1,9 @@
 """Kernel 1: streaming-softmax non-local attention (csrc/nonlocal_flash.cu).
 
 Counterpart of pfnl_tpu/ops/pallas/nonlocal_flash.py; its plain version is
-`nonlocal_attention_chunked` (ops/nonlocal_attn.py).
+`nonlocal_attention_chunked` (ops/nonlocal_attn.py).  bf16 runs on the
+tensor cores and rounds P to bf16 before PV, as the TPU kernel does (the
+plain version keeps P in float32); float32 runs on CUDA cores.
 """
 
 import torch

@@ -261,6 +261,23 @@ def test_conv3x3x3_ref_matches_tap_kernel(pad_t):
     _close(conv3x3x3_ref(_t(x), _t(wk), pad_t), want)
 
 
+@pytest.mark.parametrize("pad_t", [True, False])
+def test_conv3x3x3_ref_bf16_matches_tap_kernel(pad_t):
+    """In bf16: the port's plain version (products summed in float32, one
+    rounding, as kernel 10's tensor-core tile) against the Pallas kernel in
+    interpret mode, which rounds each dh group of products to bf16 before
+    XLA sums the three: a few bf16 ulps apart, within 1e-2 of max|ref|."""
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((2, 7, 9, 13, 48)) * 0.5).astype(np.float32)
+    wk = (rng.standard_normal((3, 3, 3, 48, 16)) * 0.05).astype(np.float32)
+    want = conv3x3x3_tap(jnp.asarray(x, jnp.bfloat16), jnp.asarray(wk, jnp.bfloat16), pad_t)
+    want = np.asarray(want.astype(jnp.float32))
+    got = conv3x3x3(_t(x).bfloat16(), _t(wk).bfloat16(), pad_t)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 1e-2 * np.abs(want).max(), err
+
+
 def test_conv3x3x3_gradients_match_jax():
     """The input and weight gradients through `conv3x3x3` against jax.grad of
     conv3x3x3_tap (whose VJP is XLA's)."""

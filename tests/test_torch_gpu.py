@@ -64,13 +64,52 @@ def _assert_close(got, ref, dtype):
         assert err <= TOL[dtype] * b.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,n,m,d", [(2, 256, 256, 84), (1, 300, 200, 30), (1, 1000, 1000, 96)])
-def test_nonlocal_flash_kernel(gen, dtype, b, n, m, d):
+def _nan_view(x, offset):
+    """x's values in a contiguous view that starts `offset` elements into a
+    NaN-filled allocation and has NaN after it: a read outside x gives NaN.
+    An odd offset leaves the view only 2-byte aligned."""
+    buf = torch.full((offset + x.numel() + 64,), float("nan"), dtype=x.dtype, device=x.device)
+    view = buf[offset:offset + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _attention_inputs(gen, dtype, b, n, m, d, dv=None):
     theta = torch.rand((b, n, d), generator=gen, device="cuda").to(dtype)
     phi = torch.rand((b, m, d), generator=gen, device="cuda").to(dtype)
-    g = _randn(gen, b, m, d).to(dtype)
+    return theta, phi, _randn(gen, b, m, dv or d).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [30, 84, 96])
+@pytest.mark.parametrize("b,n,m", [(2, 256, 256), (1, 300, 200), (1, 1000, 777)])
+def test_nonlocal_flash_kernel(gen, dtype, b, n, m, d):
+    """Kernel 1 at D below, at and on the padded width (96), with N and M
+    not multiples of the 64-row tiles."""
+    theta, phi, g = _attention_inputs(gen, dtype, b, n, m, d)
     _assert_close(nonlocal_flash(theta, phi, g), nonlocal_attention_chunked(theta, phi, g), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nonlocal_flash_peaked_softmax(gen, dtype):
+    """PFNL's self-attention at 720p: theta = phi in [0, 1), [1, 14400, 84],
+    scores up to about 84 on the diagonal."""
+    theta = torch.rand((1, 14400, 84), generator=gen, device="cuda").to(dtype)
+    g = _randn(gen, 1, 14400, 84).to(dtype)
+    got = nonlocal_flash(theta, theta, g)
+    assert torch.isfinite(got).all()
+    _assert_close(got, nonlocal_attention_chunked(theta, theta, g), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [8, 1])
+def test_nonlocal_flash_reads_only_its_inputs(gen, dtype, offset):
+    """theta, phi and g as views into NaN-filled allocations, 16-byte aligned
+    (offset 8) or not (offset 1): the output is finite and right."""
+    theta, phi, g = _attention_inputs(gen, dtype, 2, 300, 200, 84, 96)
+    got = nonlocal_flash(*(_nan_view(x, offset) for x in (theta, phi, g)))
+    assert torch.isfinite(got).all()
+    _assert_close(got, nonlocal_attention_chunked(theta, phi, g), dtype)
 
 
 def _pfrb_params(gen, t, c=64):
@@ -326,15 +365,44 @@ def test_duf_block_kernel(gen, dtype, f, g, mode, lo, hi):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("pad_t", [True, False])
-@pytest.mark.parametrize("f,g", [(48, 16), (40, 32)])
+@pytest.mark.parametrize("g", [16, 32])
+@pytest.mark.parametrize("f", [40, 64, 432])
 def test_duf_dense_kernel(gen, dtype, pad_t, f, g):
-    """Kernel 10 at ragged tiles and a ragged channel chunk (F = 40)."""
+    """Kernel 10 at ragged tiles (13 x 21 against 8 x 32 / 8 x 16) and a
+    ragged channel chunk (F = 40), SAME and VALID in T."""
     x = torch.rand((2, 5, 13, 21, f), generator=gen, device="cuda").to(dtype)
     wk = _randn(gen, 3, 3, 3, f, g, scale=(27 * f) ** -0.5)
     reset_launches()
     got = duf_dense(x, wk, pad_t)
     assert dict(launches) == {"duf_dense": 1}
     _assert_close(got, conv3x3x3_ref(x, wk, pad_t), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pad_t", [True, False])
+@pytest.mark.parametrize("offset", [8, 1])
+def test_duf_dense_reads_only_its_input(gen, dtype, pad_t, offset):
+    """x as a view into a NaN-filled allocation, 16-byte aligned (offset 8)
+    or not (offset 1): halo pixels and pad planes are never read."""
+    x = torch.rand((2, 5, 13, 21, 40), generator=gen, device="cuda").to(dtype)
+    wk = _randn(gen, 3, 3, 3, 40, 16, scale=(27 * 40) ** -0.5)
+    got = duf_dense(_nan_view(x, offset), wk, pad_t)
+    assert torch.isfinite(got).all()
+    _assert_close(got, conv3x3x3_ref(x, wk, pad_t), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["nonlocal_flash", "duf_dense"])
+def test_kernels_bitwise_equal_over_two_launches(gen, dtype, kernel):
+    """Kernels 1 and 10 sum in a fixed order, with no atomics."""
+    if kernel == "nonlocal_flash":
+        args = _attention_inputs(gen, dtype, 2, 1000, 777, 84)
+        fn = nonlocal_flash
+    else:
+        args = (torch.rand((2, 7, 37, 70, 64), generator=gen, device="cuda").to(dtype),
+                _randn(gen, 3, 3, 3, 64, 16, scale=(27 * 64) ** -0.5), True)
+        fn = duf_dense
+    assert torch.equal(fn(*args), fn(*args))
 
 
 def test_duf_dense_backward_matches_plain_autograd(gen):

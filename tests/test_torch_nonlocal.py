@@ -76,3 +76,28 @@ def test_nonlocal_block_matches_flax(hwc):
     with torch.no_grad():
         got = block(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+# bf16: the JAX kernel rounds P to bf16 before PV (p.astype(v.dtype)) as the port's bf16
+# tensor-core kernel does; the plain version keeps P in float32.  Each term of PV then
+# differs by up to 2^-9 relatively, and the output by far less than 1e-2 of max|ref|.
+BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("dist", ["normal", "uniform"])
+@pytest.mark.parametrize("shape", [(2, 256, 84), (1, 300, 30)])
+def test_bf16_plain_matches_jax_kernel(shape, dist):
+    """The port's plain version in bf16 against JAX's Pallas kernel in bf16
+    (interpret mode), theta = phi: standard normal (scores about 84 on the
+    diagonal, a near one-hot softmax) or uniform in [0, 1) as PFNL's
+    space-to-depth frames."""
+    rng = np.random.default_rng(shape[1] + 1)
+    theta = (rng.standard_normal(shape) if dist == "normal" else rng.random(shape))
+    g = rng.standard_normal(shape)
+    jt, jg = jnp.asarray(theta, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    want = np.asarray(j_flash(jt, jt, jg, bq=128, bk=128, interpret=True).astype(jnp.float32))
+    tt, tg = torch.from_numpy(theta).bfloat16(), torch.from_numpy(g).bfloat16()
+    got = nonlocal_flash(tt, tt, tg)                  # a CPU tensor: the plain version
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= BF16_TOL * np.abs(want).max(), err
