@@ -10,12 +10,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. build every kernel from csrc/ with nvcc; the build seconds and the
      ptxas register / shared-memory / spill report; the HMMA (tensor-core
      mma) instructions in each kernel entry's SASS (cuobjdump -sass),
-     failing if a bf16 entry of kernel 1 or 10 has none;
+     failing if a bf16 entry of kernel 1, 2, 3 or 10 has none;
   3. each kernel against its plain PyTorch version at the main path's
      shapes (PFNL 7 frames, LR 180x320, batch 2), in float32 (TF32 off on
      the plain side) and in bfloat16, with the tolerance stated, and the
-     time of each beside the plain version's (CUDA events, bf16); kernel 1
-     bitwise equal over two launches, its TFLOP/s and its time over
+     time of each beside the plain version's (CUDA events, bf16); kernels 1,
+     2 and 3 bitwise equal over two launches, kernel 1's time over
      scaled_dot_product_attention's; then
      the two splat kernels, 7 and 8, at their callers' shapes (K7: VESPCN
      [12,1,180,320] R=2, LTDVSR [20,1,180,320] R=1, FRVSR's HR grid
@@ -23,10 +23,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      equal over two launches, with its achieved GB/s;
   4. end to end through Predictor.test_video_truth: full-width PFNL
      (mf 64, 20 PFRBs, 7 frames, bf16, seeded random weights) on a seeded
-     12-frame 720x1280 clip degraded on the device to 180x320, frames kept
+     24-frame 720x1280 clip degraded on the device to 180x320, frames kept
      in memory.  Checks the output frames, the kernels' launch counts per
      forward batch, and the bf16 kernel path against the float32 plain
-     path on the first window; prints HR frames/s and peak memory;
+     path on the first window; prints delivered HR frames/s (the pipelined
+     Predictor, steady) beside the forward's alone (CUDA events around
+     `serve` on one batch) and peak memory;
   5. training at the paper config (batch 16, LR crop 32 / GT 128, 7
      frames, float32):
      a. kernels 5 and 6 (the PFRB backward) against their plain versions
@@ -41,15 +43,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
         memory, then the same steps on the plain path;
   6. Y-channel serving end to end, for each of VESPCN, DRVSR, MCResNet and
      LTDVSR at full width (bf16, seeded random weights with non-zero
-     biases and PReLU slopes): Predictor.test_video_lr over the 12-frame
+     biases and PReLU slopes): Predictor.test_video_lr over the 24-frame
      clip degraded on the device to 180x320 (uint8 frames in memory),
      batch 4 windows.  Checks the output frames, the splat kernels'
      launches per forward batch (K7 once for VESPCN, MCResNet and LTDVSR,
      K8 once for DRVSR, nothing else), and, on the first window, the
      bf16 and float32 kernel paths against the float32 plain path, on the
      whole SR and on the trunk's part of it (SR less the bicubic upscale
-     of the centre frame, which the splat never touches); prints HR
-     frames/s and peak memory.
+     of the centre frame, which the splat never touches); prints
+     delivered HR frames/s beside the forward's alone, and peak memory.
 
   7. DUF-52L (7 frames, x4, 21 SAME-T + 3 VALID-T dense blocks, growth
      16, bf16, seeded random weights and BatchNorm statistics):
@@ -64,12 +66,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
         F.conv3d's (kernel 10, with the ratio) and the bound;
      b. serving end to end: Predictor.test_video_lr over the clip degraded
         on the device to 180x320 (uint8 blur4/ frames in memory), batch 4
-        windows; checks the 12 output frames, kernel 9's 24 launches per
+        windows; checks the 24 output frames, kernel 9's 24 launches per
         forward batch and no other kernel, and on the first window the
         bf16 and float32 kernel paths against the float32 plain path on
         the SR and on the backbone's output (the dynamic-filtered centre
-        frame, most of |SR|, never passes the backbone); HR frames/s and
-        peak memory;
+        frame, most of |SR|, never passes the backbone); delivered HR
+        frames/s beside the forward's alone, and peak memory;
      c. the same window with conv3d_impl="pallas": kernel 10 launched 24
         times, kernel 9 none, against the float32 plain path.
 
@@ -99,7 +101,7 @@ import torch
 
 SEED = 0
 B, T, H, W, C = 2, 7, 180, 320, 64      # phase 3 shapes: the main path's
-CLIP_FRAMES, BATCH_WINDOWS = 12, 4      # phase 4: three forward batches of 4 windows
+CLIP_FRAMES, BATCH_WINDOWS = 24, 4      # phases 4, 6, 7b: six forward batches of 4 windows
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max |kernel - plain| / max |plain|
 E2E_TOL = 2e-2                          # ||SR_bf16,kernels - SR_f32,plain|| / ||SR_f32,plain||
 TRAIN_B, TRAIN_HW = 16, 32              # phase 5: the paper's batch and LR crop, 7 frames
@@ -159,8 +161,10 @@ SOURCE = {
     "duf_dense": "pfnl_tpu_torch/csrc/duf_dense.cu",
 }
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
-# mangled entry name: the bf16 entries of kernels 1 and 10, every instantiation)
-TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_mma_kernel", "duf_dense_bf16_mma_kernel")
+# mangled entry name: the bf16 entries of kernels 1, 2, 3 and 10, every instantiation)
+TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_mma_kernel", "pfrb_a_bf16_mma_kernel",
+                       "pfrb_b_bf16_mma_kernel", "duf_dense_bf16_mma_kernel")
+BITWISE_KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b")  # phase 3: equal over two launches
 
 
 def fail(msg):
@@ -308,6 +312,12 @@ def kernel_cases():
     ]
 
 
+def _bitwise_equal(got, again):
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    return all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def _max_errs(got, ref):
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
@@ -325,8 +335,8 @@ def phase_kernels(card):
             args = make(dt)
             got = kernel(*args)
             ref = plain(*args)
-            # kernel 1 (tensor cores in bf16) also bitwise equal over two launches
-            same = torch.equal(got, kernel(*args)) if name == "nonlocal_flash" else None
+            # kernels 1-3 (tensor cores in bf16) also bitwise equal over two launches
+            same = _bitwise_equal(got, kernel(*args)) if name in BITWISE_KERNELS else None
             torch.cuda.synchronize()
             abs_err, rel_err = _max_errs(got, ref)
             ok = rel_err <= TOL[key]
@@ -439,6 +449,24 @@ def synthetic_clip(frames, h, w, seed):
     return clip
 
 
+def forward_alone(tag, model, lrs, fps, card):
+    """The serving program alone on the clip's first batch of windows (CUDA
+    events around `serve`, the mean of two timings of 3 calls), printed
+    beside the Predictor's delivered rate `fps`."""
+    from pfnl_tpu_torch.infer.predictor import _clipped_windows, serve
+
+    batch = torch.from_numpy(lrs[_clipped_windows(CLIP_FRAMES, model.num_frames)[:BATCH_WINDOWS]])
+    batch = batch.cuda()
+    with torch.inference_mode():
+        serve(model, batch)
+        fwd_ms = (cuda_time_ms(lambda: serve(model, batch)) +
+                  cuda_time_ms(lambda: serve(model, batch))) / 2
+    fwd_fps = BATCH_WINDOWS / fwd_ms * 1e3
+    print(f"[{tag}] forward alone {fwd_ms:.3f} ms a batch of {BATCH_WINDOWS} ({fwd_fps:.2f} HR "
+          f"frames/s) beside delivered {fps:.2f} HR frames/s ({fps / fwd_fps:.1%} of the "
+          f"forward's rate) on {card}", flush=True)
+
+
 def phase_end_to_end(card):
     from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor, _clipped_windows
     from pfnl_tpu_torch.models.pfnl import PFNL
@@ -481,8 +509,10 @@ def phase_end_to_end(card):
           f"(batches {', '.join(f'{s:.3f}' for s in chunk_s)} s); steady {fps:.2f} HR frames/s; "
           f"peak memory {peak / 2**30:.2f} GiB on {card}", flush=True)
 
-    # the first window: bf16 kernels vs the float32 plain path, TF32 off
     lrs = pred._degrade_video(clip.astype(np.float32) / 255.0)
+    forward_alone("4 e2e", model, lrs, fps, card)
+
+    # the first window: bf16 kernels vs the float32 plain path, TF32 off
     x = torch.from_numpy(lrs[_clipped_windows(CLIP_FRAMES, model.num_frames)[0]][None]).cuda()
     ref_model = PFNL(dtype=torch.float32, num_blocks=model.num_blocks).cuda().eval()
     ref_model.load_state_dict(model.state_dict())
@@ -739,6 +769,7 @@ def phase_y_serving(card, lr_frames, lrs):
         print(f"[6 {fam}] {CLIP_FRAMES} HR frames {hr_h}x{hr_w} in {wall:.2f} s wall (batches "
               f"{', '.join(f'{s:.3f}' for s in chunk_s)} s); steady {fps:.2f} HR frames/s; peak "
               f"memory {peak / 2**30:.2f} GiB on {card}", flush=True)
+        forward_alone(f"6 {fam}", model, lrs, fps, card)
 
         # the first window: bf16 kernels and f32 kernels vs the float32 plain path, TF32
         # off; on the whole SR and on the trunk's part of it (SR less bicubic(centre Y))
@@ -925,6 +956,7 @@ def phase_duf_serving(card, lr_frames, lrs):
     print(f"[7b duf] DUF-{model.layers}L: {CLIP_FRAMES} HR frames {hr_h}x{hr_w} in {wall:.2f} s "
           f"wall (batches {', '.join(f'{t:.3f}' for t in chunk_s)} s); steady {fps:.2f} HR "
           f"frames/s; peak memory {peak / 2**30:.2f} GiB on {card}", flush=True)
+    forward_alone("7b duf", model, lrs, fps, card)
 
     x = torch.from_numpy(lrs[_clipped_windows(CLIP_FRAMES, model.num_frames)[0]][None]).cuda()
     model32 = DUF(dtype=torch.float32).cuda().eval()

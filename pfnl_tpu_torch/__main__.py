@@ -1,8 +1,11 @@
-"""Command line of the port — counterpart of `run.py test` and `run.py train`:
+"""Command line of the port — counterpart of `run.py test`, `run.py eval` and
+`run.py train`:
 
     python -m pfnl_tpu_torch test {pfnl,vespcn,mcresnet,ltdvsr,drvsr,duf} --data DIR
-        [--weights params.npz] [--compute-dtype bfloat16] [--device cuda]
-        [--start 0] [--name NAME]
+        [--save-dir D] [--weights params.npz] [--compute-dtype bfloat16]
+        [--device cuda] [--start 0] [--name NAME]
+    python -m pfnl_tpu_torch eval pfnl [--save-dir D] [--eval-list F]
+        [--compute-dtype float32|bfloat16] [--device cuda]
     python -m pfnl_tpu_torch train pfnl --train-list F [--eval-list F]
         [--steps N] [--in-size 32] [--batch-size 16] [--save-dir D]
         [--save-every 500] [--compute-dtype float32|bfloat16] [--no-eval]
@@ -12,9 +15,16 @@
 `DIR/<seq>/<NAME>/*.png`: PFNL degrades `DIR/<seq>/truth/*.png` on the
 device, the Y-channel families (vespcn, mcresnet, ltdvsr, drvsr) and DUF
 (52 layers) read the pre-rendered `DIR/<seq>/blur4/*.png`, as the JAX
-package does.  `--weights` is a flat `.npz` of '/'-joined flax paths (for
-DUF with its BatchNorm state: `params/...` and `batch_stats/...`); without
-it the weights are random, drawn from `--seed`.
+package does.  Its weights, as JAX's `_restored_state`: the newest
+`ckpt_*.pt` that `train` wrote under `--save-dir` (the preset's
+`./checkpoint/<model>` by default); without one they stay random, drawn
+from `--seed`.  `--weights` takes precedence: a flat `.npz` of '/'-joined
+flax paths (for DUF with its BatchNorm state: `params/...` and
+`batch_stats/...`).
+
+`eval` restores the same way and runs the Evaluator at the checkpoint's
+step, appending to `<save-dir>/<model>.txt` as `train`'s evaluations do.
+Only PFNL trains in the port, so only PFNL evaluates.
 
 `train` trains from the sequences of a filelist (the paper config by
 default: batch 16, LR crop 32, 7 frames, float32), saving checkpoints and
@@ -41,12 +51,21 @@ def _parser():
     t.add_argument("model", choices=sorted(MODEL_REGISTRY))
     t.add_argument("--data", required=True,
                    help="dataset dir: <seq>/truth/*.png (pfnl) or <seq>/blur4/*.png")
-    t.add_argument("--weights", default=None, help="flat .npz of flax params")
+    t.add_argument("--save-dir", default=None,
+                   help="restore its newest ckpt_*.pt (default: the preset's save_dir)")
+    t.add_argument("--weights", default=None, help="flat .npz of flax params (before --save-dir)")
     t.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
     t.add_argument("--device", default="cuda")
     t.add_argument("--start", type=int, default=0, help="first sequence index")
     t.add_argument("--name", default=None, help="output subdirectory (default: model)")
     t.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+
+    e = sub.add_parser("eval", help="evaluate the newest checkpoint of --save-dir")
+    e.add_argument("model", choices=sorted(MODEL_REGISTRY))
+    e.add_argument("--save-dir", default=None)
+    e.add_argument("--eval-list", default=None)
+    e.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+    e.add_argument("--device", default="cuda")
 
     r = sub.add_parser("train", help="train from a filelist of sequence dirs")
     r.add_argument("model", choices=["pfnl"])
@@ -63,19 +82,64 @@ def _parser():
     return p
 
 
-def cmd_test(args):
-    from pfnl_tpu_torch.config import preset
-    from pfnl_tpu_torch.infer.predictor import Predictor
+# what the families other than PFNL wait for before they train, and so evaluate
+_NOT_TRAINED = {"duf": "the DUF training slice",
+                **{m: "the flow-family training slice" for m in ("vespcn", "mcresnet", "ltdvsr",
+                                                                 "drvsr")}}
+
+
+def _restored_model(args, cfg, seed=0, weights=None):
+    """The family's model, weights random from `seed`, then the npz
+    `weights` if given, else the newest ckpt_*.pt under cfg.save_dir if
+    there is one (run.py `_restored_state`, :140-146, which starts from the
+    init); returns (model on --device in eval mode, the checkpoint's step
+    or 0)."""
+    from pfnl_tpu_torch.train.trainer import load_newest_checkpoint
     from pfnl_tpu_torch.utils.weights import load_npz
 
-    cfg = preset(args.model)
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     model = MODEL_REGISTRY[args.model](num_frames=cfg.num_frames, scale=cfg.scale, dtype=dtype,
-                                       generator=torch.Generator().manual_seed(args.seed))
-    if args.weights:
-        model.load_state_dict(load_npz(args.weights))
-    model.to(args.device).eval()
+                                       generator=torch.Generator().manual_seed(seed))
+    step = 0
+    if weights:
+        model.load_state_dict(load_npz(weights))
+    else:
+        state = load_newest_checkpoint(cfg.save_dir, model, "cpu")
+        if state is not None:
+            step = int(state["step"])
+    return model.to(args.device).eval(), step
+
+
+def _config(args, **over):
+    from pfnl_tpu_torch.config import preset
+
+    if args.save_dir is not None:
+        over["save_dir"] = args.save_dir
+    return preset(args.model, **over)
+
+
+def cmd_test(args):
+    """run.py cmd_test (:149-166) without the mesh."""
+    from pfnl_tpu_torch.infer.predictor import Predictor
+
+    cfg = _config(args)
+    model, _ = _restored_model(args, cfg, args.seed, args.weights)
     Predictor(model).testvideos(args.data, start=args.start, name=args.name or cfg.model)
+
+
+def cmd_eval(args):
+    """run.py cmd_eval (:123-137): the restored model through the Evaluator
+    at the checkpoint's step."""
+    from pfnl_tpu_torch.eval.evaluator import Evaluator
+
+    if args.model in _NOT_TRAINED:
+        raise SystemExit(f"eval {args.model}: the port does not train {args.model} yet, so it "
+                         f"has no checkpoint to evaluate; that comes with "
+                         f"{_NOT_TRAINED[args.model]}")
+    cfg = _config(args, **({"eval_list": args.eval_list} if args.eval_list else {}))
+    cfg.log_path = os.path.join(cfg.save_dir, f"{cfg.model}.txt")
+    model, step = _restored_model(args, cfg)
+    Evaluator(cfg, model).run(step, log_path=cfg.log_path)
 
 
 def cmd_train(args):
@@ -112,7 +176,7 @@ def cmd_train(args):
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    {"test": cmd_test, "train": cmd_train}[args.cmd](args)
+    {"test": cmd_test, "eval": cmd_eval, "train": cmd_train}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -45,6 +45,13 @@ def to_uint8_img(x: np.ndarray) -> np.ndarray:
     return np.round(np.clip(x * 255.0, 0, 255)).astype(np.uint8)
 
 
+def to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """`to_uint8_img` on the tensor's device: round(clip(x*255, 0, 255)) in
+    float32, half to even as numpy rounds, so the bytes are the same; the
+    Predictor converts on the card and downloads a quarter of the bytes."""
+    return torch.round(torch.clamp(x.float() * 255.0, 0, 255)).to(torch.uint8)
+
+
 def _clipped_windows(num_frames: int, t: int) -> np.ndarray:
     """[F, T] edge-clamped sliding-window indices (pfnl.py:238-241)."""
     idx = np.arange(num_frames)[:, None] + np.arange(t)[None, :] - t // 2
@@ -114,7 +121,18 @@ class Predictor:
     def _run_windows(self, lrs: np.ndarray, save_path: str, part: int):
         """Window batches through the model's serving program.  LR
         frames are edge-padded to a multiple of the model's lr_multiple
-        and the HR output is cropped back."""
+        and the HR output is cropped back.
+
+        One batch stays pending, as in the JAX Predictor: batch i is
+        dispatched before batch i-1 is written out, so on a CUDA device
+        batch i-1's download and sink overlap batch i's forward.  Batch 0
+        runs alone, so the warm-up lands in all_time[0]; all_time[i] is
+        dispatch i plus flush i-1, and the last flush is added to
+        all_time[-1].  On CUDA a batch uploads the LR frames its windows
+        span (at most batch + T - 1) and their indices, and gathers the
+        windows on the card; its uint8 frames come down into pinned
+        memory.  Two pinned buffers of each are used in turn, and a flush
+        waits on its batch's CUDA event only."""
         t = self.num_frames
         mult = self.model.lr_multiple
         h0, w0 = lrs.shape[1], lrs.shape[2]
@@ -132,22 +150,66 @@ class Predictor:
         print(f"{max_frame} Inputs With Shape {lrs.shape[1:]}")
         all_time = []
         n_chunks = (max_frame + num_once - 1) // num_once
+        cuda = self.device.type == "cuda"
+        # CUDA: (LR frames, window indices) and uint8 outputs, two each; batch i uses [i % 2]
+        pinned_in, pinned_out = [], []
+
+        def dispatch(i, sel):
+            """Batch i's upload, forward, uint8 conversion and download,
+            enqueued; returns (host uint8 [B,H,W,3], its CUDA event)."""
+            if not cuda:
+                with torch.inference_mode():
+                    return to_uint8(serve(self.model, torch.from_numpy(lrs[sel]))), None
+            while len(pinned_in) < 2:
+                pinned_in.append((torch.empty((num_once + t - 1,) + lrs.shape[1:],
+                                              dtype=torch.from_numpy(lrs[:1]).dtype,
+                                              pin_memory=True),
+                                  torch.empty(sel.shape, dtype=torch.int64, pin_memory=True)))
+            # batch i-2's uploads from these buffers preceded its forward, which flush(i-2)
+            # waited on
+            frames, idx = pinned_in[i % 2]
+            lo, hi = int(sel.min()), int(sel.max()) + 1
+            np.copyto(frames.numpy()[:hi - lo], lrs[lo:hi])
+            np.copyto(idx.numpy(), sel - lo)
+            with torch.inference_mode():
+                span = frames[:hi - lo].to(self.device, non_blocking=True)
+                clip = span[idx.to(self.device, non_blocking=True)]  # [B,T,h,w,3]
+                u8 = to_uint8(serve(self.model, clip))
+            while len(pinned_out) < 2:
+                pinned_out.append(torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True))
+            host = pinned_out[i % 2]  # batch i-2's frames were written out by flush(i-2)
+            host.copy_(u8, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
+
+        def flush(host, done, n_valid, base):
+            if done is not None:
+                done.synchronize()
+            frames = host.numpy()
+            for j in range(n_valid):  # a copy: the pinned buffer is reused two batches on
+                self.sink.write(os.path.join(save_path, f"{base + j:0>4}.png"),
+                                frames[j, :out_h, :out_w].copy())
+
+        pending = None  # (host uint8, event, valid frames, first frame index)
         for i in range(n_chunks):
             sel = windows[i * num_once:(i + 1) * num_once]
             pad = num_once - sel.shape[0]
             if pad:  # as the JAX package does: every batch has one shape
                 sel = np.concatenate([sel, sel[-1:].repeat(pad, 0)])
             st = time.time()
-            with torch.inference_mode():
-                clip = torch.from_numpy(lrs[sel]).to(self.device)
-                sr = serve(self.model, clip)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            sr = sr.cpu().numpy()
-            for j in range(num_once - pad):
-                self.sink.write(os.path.join(save_path, f"{i * num_once + j:0>4}.png"),
-                                to_uint8_img(sr[j][:out_h, :out_w]))
+            batch = (*dispatch(i, sel), num_once - pad, i * num_once)
+            if i == 0:
+                flush(*batch)
+            else:
+                if pending is not None:
+                    flush(*pending)
+                pending = batch
             all_time.append(time.time() - st)
+        if pending is not None:
+            st = time.time()
+            flush(*pending)
+            all_time[-1] += time.time() - st
         all_time = np.array(all_time)
         avg = np.mean(all_time[1:]) if len(all_time) > 1 else float(all_time[0])
         print(f"spent {np.sum(all_time)} s in total and {avg} s in average")

@@ -14,13 +14,21 @@ seeded BatchNorm statistics), one batch of `--batch` windows at LR `--lr`
     device's busy share of it: the self device time of every CUDA kernel
     `torch.profiler` records over two `serve` calls, halved, over the
     event time of one call;
+  * the host's share of a `serve` call on the host clock, the mean of 3
+    after a synchronize: the seconds until it returns (enqueueing its
+    work) beside those until the device is done.  The pipelined Predictor
+    can keep the device busy only while the first is well below the
+    second;
   * that kernel time split by kernel name into the port's kernels (PFNL's
     attention, PFRBs and tail; the splats; DUF's dense block and conv),
     convolutions (cuDNN, CUTLASS, GEMM), layout copies (NCHW<->NHWC,
     copies, transposes) and the rest (elementwise), and the five largest
     kernels;
-  * the Predictor's host tail of one batch on the host clock: the float32
-    download, then uint8 rounding and the in-memory sink per frame.
+  * the Predictor's tail of one batch on the host clock, the second of two
+    passes: uint8 rounding on the card and the download of the uint8 frames
+    (to pageable memory here, pinned in the Predictor), then the in-memory
+    sink per frame (the Predictor overlaps this tail with the next batch's
+    forward).
 """
 
 import argparse
@@ -30,7 +38,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pfnl_tpu_torch.infer.predictor import MemoryFrames, serve, to_uint8_img
+from pfnl_tpu_torch.infer.predictor import MemoryFrames, serve, to_uint8
 from pfnl_tpu_torch.models import MODEL_REGISTRY
 
 Y_FAMILIES = ("vespcn", "drvsr", "mcresnet", "ltdvsr")
@@ -99,6 +107,14 @@ def profile_family(family: str, batch: int, h: int, w: int, seed: int = 0):
         fwd = _event_ms(lambda: model(x, **kw), 5)
         plain_fwd = _event_ms(lambda: model(x, plain=True, **kw), 3)
         srv = _event_ms(lambda: serve(model, x), 5)
+        enqueue = done = 0.0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(model, x)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enqueue, done = enqueue + (t1 - t0) / 3, done + (time.perf_counter() - t0) / 3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
                 serve(model, x)
@@ -111,25 +127,28 @@ def profile_family(family: str, batch: int, h: int, w: int, seed: int = 0):
             cats[_category(e.key)] = cats.get(_category(e.key), 0) + e.self_device_time_total
 
         dev = serve(model, x)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        arr = dev.cpu().numpy()
-        t1 = time.perf_counter()
-        sink = MemoryFrames()
-        for j in range(arr.shape[0]):
-            sink.write(f"o/{j:04d}.png", to_uint8_img(arr[j]))
-        t2 = time.perf_counter()
+        for _ in range(2):  # the second pass is timed: the first allocates
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arr = to_uint8(dev).cpu().numpy()
+            t1 = time.perf_counter()
+            sink = MemoryFrames()
+            for j in range(arr.shape[0]):
+                sink.write(f"o/{j:04d}.png", arr[j].copy())
+            t2 = time.perf_counter()
 
     total = sum(cats.values()) or 1.0
     print(f"== {family}: {batch} windows, LR {h}x{w}, bf16; forward {fwd:.3f} ms (plain path "
           f"{plain_fwd:.3f} ms), serve {srv:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({busy_ms / srv:.1%})", flush=True)
+    print(f"host: serve returns after {1e3 * enqueue:.3f} ms, the device is done after "
+          f"{1e3 * done:.3f} ms", flush=True)
     print("kernel time: " + ", ".join(f"{c} {v / total:.1%}" for c, v in
                                       sorted(cats.items(), key=lambda kv: -kv[1])), flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]:
         print(f"  {e.self_device_time_total / total:6.1%} {e.self_device_time_total / 2e3:8.3f} ms"
               f"  {e.key[:80]}", flush=True)
-    print(f"host tail of one batch: download {1e3 * (t1 - t0):.1f} ms, uint8 + sink "
+    print(f"tail of one batch: uint8 on the card + download {1e3 * (t1 - t0):.1f} ms, sink "
           f"{1e3 * (t2 - t1):.1f} ms", flush=True)
 
 

@@ -7,12 +7,15 @@ of any rank and keep the input's dtype: bf16 stays bf16.
 import numpy as np
 import torch
 
+from pfnl_tpu_torch.ops.constants import on_device
+
 _Y_SCALE = np.array([65.481, 128.553, 24.966], np.float32) / 255.0
 _YCBCR_T = (
     np.array([[65.481, 128.553, 24.966], [-37.797, -74.203, 112.0], [112.0, -93.786, -18.214]],
              np.float32)
     / 255.0
 )
+_Y_OFFSET = np.float32(16.0 / 255.0)
 _YCBCR_OFFSET = np.array([16.0, 128.0, 128.0], np.float32) / 255.0
 # The reference hard-codes this (truncated) inverse (modules/videosr_ops.py:112).
 _YCBCR_TINV = (
@@ -24,14 +27,15 @@ _YCBCR_TINV = (
 
 
 def _const(a: np.ndarray, x: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, device=x.device).to(x.dtype)
+    """One of the module's constant arrays (so its id is a stable key) on x's device."""
+    return on_device(("color", id(a)), lambda: a, x.device, x.dtype)
 
 
 def rgb2y(x: torch.Tensor) -> torch.Tensor:
     """[..., 3] RGB -> [..., 1] Y; single-channel input passes through."""
     if x.shape[-1] == 1:
         return x
-    return (x * _const(_Y_SCALE, x)).sum(-1, keepdim=True) + _const(np.float32(16.0 / 255.0), x)
+    return (x * _const(_Y_SCALE, x)).sum(-1, keepdim=True) + _const(_Y_OFFSET, x)
 
 
 def rgb2ycbcr(x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pfnl_tpu_torch.ops.constants import on_device
+
 
 def gaussian_kernel_2d(kernlen: int = 13, sigma: float = 1.6) -> np.ndarray:
     """Separable 2-D Gaussian equal to scipy.ndimage.gaussian_filter of a
@@ -26,12 +28,12 @@ BLUR_KERNEL = gaussian_kernel_2d(13, 1.6)
 def downsample_4d(x: torch.Tensor, scale: int = 4) -> torch.Tensor:
     """[N,H,W,C] -> [N,H//scale,W//scale,C]: reflect pad, then a depthwise
     cross-correlation with BLUR_KERNEL at stride `scale`, VALID."""
-    k = torch.from_numpy(BLUR_KERNEL)
+    k = on_device("blur", lambda: BLUR_KERNEL, x.device, x.dtype)
     kh = k.shape[0]
     pt, pb = (kh - 1) // 2, (kh - 1) - (kh - 1) // 2
     c = x.shape[-1]
     y = F.pad(x.permute(0, 3, 1, 2), (pt, pb, pt, pb), mode="reflect")
-    wgt = k.to(device=x.device, dtype=x.dtype)[None, None].expand(c, 1, kh, kh)
+    wgt = k[None, None].expand(c, 1, kh, kh)
     y = F.conv2d(y, wgt, stride=scale, groups=c)
     return y.permute(0, 2, 3, 1)
 

@@ -11,6 +11,8 @@ import functools
 import numpy as np
 import torch
 
+from pfnl_tpu_torch.ops.constants import on_device
+
 
 def _keys_cubic(x: np.ndarray, a: float = -0.75) -> np.ndarray:
     x = np.abs(x)
@@ -65,8 +67,12 @@ def resize_images(x: torch.Tensor, size, method: str = "bilinear") -> torch.Tens
     out_h, out_w = int(size[0]), int(size[1])
     n, h, w, c = x.shape
     compute = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    wh = torch.as_tensor(_resize_matrix(h, out_h, method, "tf1"), device=x.device).to(compute)
-    ww = torch.as_tensor(_resize_matrix(w, out_w, method, "tf1"), device=x.device).to(compute)
+
+    def matrix(n_in, n_out):
+        return on_device(("resize", n_in, n_out, method),
+                         lambda: _resize_matrix(n_in, n_out, method, "tf1"), x.device, compute)
+
+    wh, ww = matrix(h, out_h), matrix(w, out_w)
     y = torch.einsum("oh,nhwc->nowc", wh, x.to(compute))
     y = torch.einsum("pw,nowc->nopc", ww, y)
     return y.to(x.dtype)

@@ -51,6 +51,23 @@ def polynomial_schedule(init_value: float, end_value: float, power: float,
     return schedule
 
 
+def checkpoints(workdir: str):
+    """The `ckpt_*.pt` files under workdir, oldest first."""
+    return sorted(glob.glob(os.path.join(workdir, "ckpt_*.pt")))
+
+
+def load_newest_checkpoint(workdir: str, model, device):
+    """Load the newest checkpoint under workdir into `model`; returns its
+    state dict ("step", "model", "optimizer"), or None when there is none
+    (the model keeps its weights, as JAX's restore keeps the init)."""
+    ckpts = checkpoints(workdir)
+    if not ckpts:
+        return None
+    state = torch.load(ckpts[-1], map_location=device, weights_only=True)
+    model.load_state_dict(state["model"])
+    return state
+
+
 def build_model(cfg) -> PFNL:
     """The config's model with seeded random weights; compute_dtype
     "bfloat16" is mixed precision (bf16 activations, float32 parameters and
@@ -117,7 +134,7 @@ class Trainer:
 
     # --- checkpointing --------------------------------------------------
     def checkpoints(self):
-        return sorted(glob.glob(os.path.join(self.workdir, "ckpt_*.pt")))
+        return checkpoints(self.workdir)
 
     def save(self):
         os.makedirs(self.workdir, exist_ok=True)
@@ -130,11 +147,9 @@ class Trainer:
 
     def restore(self) -> bool:
         """Load the newest checkpoint, if there is one (reference reload=True)."""
-        ckpts = self.checkpoints()
-        if not ckpts:
+        state = load_newest_checkpoint(self.workdir, self.model, self.device)
+        if state is None:
             return False
-        state = torch.load(ckpts[-1], map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.global_step = int(state["step"])
         return True

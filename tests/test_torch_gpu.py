@@ -120,8 +120,10 @@ def _pfrb_params(gen, t, c=64):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37)])
+@pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37), (1, 7, 45, 83)])
 def test_pfrb_kernels(gen, dtype, shape):
+    """Kernels 2 and 3 at T = 7 and 3, with H and W not multiples of the
+    bf16 kernels' 8 x 32 tile (nor of the float32 ones' 8 x 16)."""
     n, t, h, w = shape
     feat = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
     w1, b1, wfuse, bfuse, w2f, w2b, b2 = _pfrb_params(gen, t)
@@ -129,6 +131,23 @@ def test_pfrb_kernels(gen, dtype, shape):
     _assert_close(pfrb_a(feat, w1, b1, wfuse, bfuse), (i1, base), dtype)
     _assert_close(pfrb_b(feat, i1, base, w2f, w2b, b2),
                   pfrb_b_ref(feat, i1, base, w2f, w2b, b2), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [8, 1])
+def test_pfrb_kernels_read_only_their_inputs(gen, dtype, offset):
+    """feat, i1 and base as views into NaN-filled allocations, 16-byte
+    aligned (offset 8) or not (offset 1): halo pixels outside the image are
+    never read, and the outputs are finite and right."""
+    n, t, h, w = 1, 7, 21, 45
+    feat = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
+    w1, b1, wfuse, bfuse, w2f, w2b, b2 = _pfrb_params(gen, t)
+    i1, base = pfrb_a_ref(feat, w1, b1, wfuse, bfuse)
+    got_a = pfrb_a(_nan_view(feat, offset), w1, b1, wfuse, bfuse)
+    got_b = pfrb_b(*(_nan_view(x, offset) for x in (feat, i1, base)), w2f, w2b, b2)
+    assert all(torch.isfinite(x).all() for x in got_a + (got_b,))
+    _assert_close(got_a, (i1, base), dtype)
+    _assert_close(got_b, pfrb_b_ref(feat, i1, base, w2f, w2b, b2), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -178,6 +197,31 @@ def test_pfnl_kernel_path_matches_plain_path(gen, dtype):
     assert got.shape == (2, 1, 520, 528, 3) and torch.isfinite(got).all()
     err = ((got - ref).norm() / ref.norm()).item()
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("frames", [3, 13])
+def test_pipelined_predictor_on_the_card_writes_what_the_cpu_writes(gen, frames):
+    """The Predictor's CUDA path (pinned buffers used in turn, uint8 on the
+    card, one batch pending) against its CPU path on the same float32
+    weights: the same frame names and len(all_time), every byte within 1
+    LSB (kernel vs plain sums).  3 frames: one batch; 13: four batches, the
+    last ragged, so each pinned buffer is reused."""
+    from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor
+
+    clip = torch.randint(0, 256, (frames, 40, 52, 3), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.uint8).numpy()
+    model = PFNL(num_blocks=2, generator=torch.Generator().manual_seed(0)).eval()
+    got = {}
+    for dev in ("cpu", "cuda"):
+        mem = MemoryFrames({f"c/truth/{i:04d}.png": clip[i] for i in range(frames)})
+        times = Predictor(model.to(dev), source=mem, sink=mem).test_video_truth("c", name="sr")
+        got[dev] = len(times), {p: mem.read(p) for p in mem.list("c/sr")}
+    (n_cpu, cpu), (n_cuda, cuda) = got["cpu"], got["cuda"]
+    assert n_cuda == n_cpu == -(-frames // 4) and list(cuda) == list(cpu)
+    assert len(cuda) == frames
+    for p in cpu:
+        assert cuda[p].shape == (40, 52, 3) and cuda[p].dtype == cpu[p].dtype
+        assert abs(cuda[p].astype(int) - cpu[p].astype(int)).max() <= 1, p
 
 
 def test_pfnl_gradients_kernel_path_match_plain_path(gen):
@@ -392,17 +436,26 @@ def test_duf_dense_reads_only_its_input(gen, dtype, pad_t, offset):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("kernel", ["nonlocal_flash", "duf_dense"])
+@pytest.mark.parametrize("kernel", ["nonlocal_flash", "duf_dense", "pfrb_a", "pfrb_b"])
 def test_kernels_bitwise_equal_over_two_launches(gen, dtype, kernel):
-    """Kernels 1 and 10 sum in a fixed order, with no atomics."""
+    """Kernels 1, 2, 3 and 10 sum in a fixed order, with no atomics."""
     if kernel == "nonlocal_flash":
         args = _attention_inputs(gen, dtype, 2, 1000, 777, 84)
         fn = nonlocal_flash
-    else:
+    elif kernel == "duf_dense":
         args = (torch.rand((2, 7, 37, 70, 64), generator=gen, device="cuda").to(dtype),
                 _randn(gen, 3, 3, 3, 64, 16, scale=(27 * 64) ** -0.5), True)
         fn = duf_dense
-    assert torch.equal(fn(*args), fn(*args))
+    else:
+        feat = _randn(gen, 2, 7, 37, 70, 64, scale=0.5).to(dtype)
+        w1, b1, wfuse, bfuse, w2f, w2b, b2 = _pfrb_params(gen, 7)
+        if kernel == "pfrb_a":
+            args, fn = (feat, w1, b1, wfuse, bfuse), pfrb_a
+        else:
+            args, fn = (feat, *pfrb_a_ref(feat, w1, b1, wfuse, bfuse), w2f, w2b, b2), pfrb_b
+    got, again = fn(*args), fn(*args)
+    got, again = (x if isinstance(x, tuple) else (x,) for x in (got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_duf_dense_backward_matches_plain_autograd(gen):

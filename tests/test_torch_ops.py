@@ -95,3 +95,26 @@ def test_scan_dataset_dir_copy(tmp_path):
     assert scan_dataset_dir(str(tmp_path)) == j_scan(str(tmp_path))
     assert [os.path.basename(p) for p in scan_dataset_dir(str(tmp_path))] == [
         "a_seq", "b_seq", "c_seq"]
+
+
+def test_constants_are_uploaded_once_and_usable_by_autograd():
+    """ops/constants.on_device: one make() per (key, device, dtype), the
+    same tensor after, and a normal tensor even when first made under
+    inference mode, so a training forward may save it for its backward."""
+    from pfnl_tpu_torch.ops.constants import on_device
+
+    made = []
+
+    def make():
+        made.append(1)
+        return np.arange(3, dtype=np.float32)
+
+    with torch.inference_mode():
+        a = on_device("test/arange", make, "cpu", torch.float32)
+    b = on_device("test/arange", make, "cpu", torch.float32)
+    assert a is b and len(made) == 1 and not a.is_inference()
+    x = torch.ones(3, requires_grad=True)
+    (x * b).sum().backward()
+    assert torch.equal(x.grad, b)
+    c = on_device("test/arange", make, "cpu", torch.bfloat16)
+    assert c.dtype == torch.bfloat16 and len(made) == 2

@@ -20,7 +20,7 @@ from pfnl_tpu.infer.predictor import Predictor as JPredictor
 from pfnl_tpu.models.pfnl import PFNL as JPFNL
 from pfnl_tpu.utils.image_io import imread
 
-from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor
+from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor, to_uint8, to_uint8_img
 from pfnl_tpu_torch.models.pfnl import PFNL
 from pfnl_tpu_torch.ops.cuda import launches
 from pfnl_tpu_torch.utils.weights import from_flax, load_npz
@@ -128,9 +128,10 @@ def test_predictor_matches_jax_predictor(dataset):
     _, seq_dirs = dataset
     x = np.zeros((1, 3, 12, 12, 3), np.float32)
     jm, variables, params = _flax_pfnl(3, 1, x)
-    JPredictor(preset("pfnl", num_frames=3), jm, variables).test_video_truth(
+    want_times = JPredictor(preset("pfnl", num_frames=3), jm, variables).test_video_truth(
         seq_dirs[0], name="sr_jax")
-    Predictor(_port(params, 3, 1)).test_video_truth(seq_dirs[0], name="sr_torch")
+    got_times = Predictor(_port(params, 3, 1)).test_video_truth(seq_dirs[0], name="sr_torch")
+    assert len(got_times) == len(want_times) == 2  # 6 windows in batches of 4
     jax_pngs = sorted(glob.glob(os.path.join(seq_dirs[0], "sr_jax", "*.png")))
     torch_pngs = sorted(glob.glob(os.path.join(seq_dirs[0], "sr_torch", "*.png")))
     assert [os.path.basename(p) for p in torch_pngs] == [os.path.basename(p) for p in jax_pngs]
@@ -139,6 +140,52 @@ def test_predictor_matches_jax_predictor(dataset):
         ia, ib = imread(a).astype(int), imread(b).astype(int)
         assert ia.shape == (48, 48, 3)
         assert np.abs(ia - ib).max() <= 1, a
+
+
+@pytest.mark.parametrize("num_frames,batches", [(3, 1), (6, 2), (8, 2)])
+def test_pipelined_predictor_matches_jax_predictor(tmp_path, num_frames, batches):
+    """The port's pipelined _run_windows over MemoryFrames against the JAX
+    Predictor's PNGs on the same weights: the same names, bytes within 1
+    LSB (float32 sums in other orders), and the same len(all_time), for a
+    clip of one batch (3 windows, batch 4), one whose last batch is ragged
+    (6) and one of full batches (8)."""
+    _, (seq,) = make_dataset(str(tmp_path), num_seqs=1, num_frames=num_frames, hw=(48, 48))
+    x = np.zeros((1, 3, 12, 12, 3), np.float32)
+    jm, variables, params = _flax_pfnl(3, 1, x)
+    want_times = JPredictor(preset("pfnl", num_frames=3), jm, variables).test_video_truth(
+        seq, name="sr_jax")
+    mem = MemoryFrames({p: imread(p) for p in sorted(glob.glob(os.path.join(seq, "truth", "*")))})
+    got_times = Predictor(_port(params, 3, 1), source=mem, sink=mem).test_video_truth(
+        seq, name="sr_torch")
+    assert len(got_times) == len(want_times) == batches
+    jax_pngs = sorted(glob.glob(os.path.join(seq, "sr_jax", "*.png")))
+    outs = mem.list(os.path.join(seq, "sr_torch"))
+    assert [os.path.basename(p) for p in outs] == [os.path.basename(p) for p in jax_pngs]
+    assert len(outs) == num_frames
+    for a, b in zip(outs, jax_pngs):
+        got = mem.read(a)
+        assert got.shape == (48, 48, 3) and got.dtype == np.uint8 and got.flags.owndata
+        assert np.abs(got.astype(int) - imread(b).astype(int)).max() <= 1, a
+
+
+def test_uint8_on_the_device_is_bitwise_to_uint8_img():
+    """to_uint8 (torch, the Predictor's conversion) against to_uint8_img
+    (numpy, the reference's) on the same float32 input: every byte equal,
+    over a dense sweep of [-0.1, 1.1], exact .5 ties after x*255 (both
+    round half to even) and the clip edges."""
+    sweep = np.linspace(-0.1, 1.1, 200_001, dtype=np.float32)
+    # float32 x whose float32 product x*255 is exactly k + 0.5
+    cand = np.float32((np.arange(256) + 0.5) / 255)
+    near = np.concatenate([np.nextafter(cand, np.float32(-1)), cand,
+                           np.nextafter(cand, np.float32(2))]).astype(np.float32)
+    ties = near[(np.modf(near * np.float32(255))[0] == 0.5) & (near * np.float32(255) < 255)]
+    assert len(ties) > 100
+    x = np.concatenate([sweep, ties, np.float32([0, 1, -1, 2, 0.5 / 255, 254.5 / 255])])
+    got = to_uint8(torch.from_numpy(x)).numpy()
+    want = to_uint8_img(x)
+    assert got.dtype == np.uint8 and np.array_equal(got, want)
+    got_ties = got[len(sweep):len(sweep) + len(ties)].astype(int)
+    assert np.all(got_ties % 2 == 0) and np.all(np.abs(got_ties - ties * 255) == 0.5)
 
 
 def test_predictor_memory_frames_and_odd_size():
