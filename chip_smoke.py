@@ -10,12 +10,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. build every kernel from csrc/ with nvcc; the build seconds and the
      ptxas register / shared-memory / spill report; the HMMA (tensor-core
      mma) instructions in each kernel entry's SASS (cuobjdump -sass),
-     failing if a bf16 entry of kernel 1, 2, 3 or 10 has none;
+     failing if a bf16 entry of kernel 1, 2, 3, 4, 9 or 10 has none (all
+     six run on the tensor cores in bf16);
   3. each kernel against its plain PyTorch version at the main path's
      shapes (PFNL 7 frames, LR 180x320, batch 2), in float32 (TF32 off on
      the plain side) and in bfloat16, with the tolerance stated, and the
      time of each beside the plain version's (CUDA events, bf16); kernels 1,
-     2 and 3 bitwise equal over two launches, kernel 1's time over
+     2, 3 and 4 bitwise equal over two launches, kernel 1's time over
      scaled_dot_product_attention's; then
      the two splat kernels, 7 and 8, at their callers' shapes (K7: VESPCN
      [12,1,180,320] R=2, LTDVSR [20,1,180,320] R=1, FRVSR's HR grid
@@ -59,7 +60,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
         plain versions at batch 2, LR 180x320, at the first block (F 64),
         the last SAME-T block (F 384), the last VALID-T block (F 432, T
         3 -> 1) and a 16L block (F 128, G 32), in float32 and bfloat16;
-        kernel 10 bitwise equal over two launches;
+        kernels 9 and 10 bitwise equal over two launches;
         kernel 9 on a buffer and scratch that hold NaN wherever the block
         may not read: the new channels are finite and every other element
         is bitwise unchanged; times and TFLOP/s beside the plain versions',
@@ -161,10 +162,13 @@ SOURCE = {
     "duf_dense": "pfnl_tpu_torch/csrc/duf_dense.cu",
 }
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
-# mangled entry name: the bf16 entries of kernels 1, 2, 3 and 10, every instantiation)
+# mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
 TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_mma_kernel", "pfrb_a_bf16_mma_kernel",
-                       "pfrb_b_bf16_mma_kernel", "duf_dense_bf16_mma_kernel")
-BITWISE_KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b")  # phase 3: equal over two launches
+                       "pfrb_b_bf16_mma_kernel", "pfnl_tail_bf16_mma_kernel",
+                       "duf_block_pointwise_bf16_mma_kernel", "duf_block_conv_bf16_mma_kernel",
+                       "duf_dense_bf16_mma_kernel")
+# phases 3 and 7a: equal over two launches (7a holds kernel 10 so as well)
+BITWISE_KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "duf_block")
 
 
 def fail(msg):
@@ -335,7 +339,7 @@ def phase_kernels(card):
             args = make(dt)
             got = kernel(*args)
             ref = plain(*args)
-            # kernels 1-3 (tensor cores in bf16) also bitwise equal over two launches
+            # kernels 1-4 also bitwise equal over two launches
             same = _bitwise_equal(got, kernel(*args)) if name in BITWISE_KERNELS else None
             torch.cuda.synchronize()
             abs_err, rel_err = _max_errs(got, ref)
@@ -855,9 +859,11 @@ def phase_duf_kernels(card):
             key = str(dt).replace("torch.", "")
             p, buf = _duf_case(gen, f, g, mode, lo, hi, dt)
             scratch = torch.full((hw * n_in * f,), float("nan"), device="cuda", dtype=dt)
-            got, ref = buf.clone(), buf.clone()
+            got, again, ref = buf.clone(), buf.clone(), buf.clone()
             dense_block(got, p, lo, hi, scratch)
+            dense_block(again, p, lo, hi, scratch)
             dense_block_ref(ref, p, lo, hi)
+            same9 = torch.equal(_bits(got), _bits(again)) if "duf_block" in BITWISE_KERNELS else None
             x = buf[:, lo:hi, :, :, :f].contiguous()
             got10, ref10 = duf_dense(x, p.wb, mode == "thw"), conv3x3x3_ref(x, p.wb, mode == "thw")
             same10 = torch.equal(got10, duf_dense(x, p.wb, mode == "thw"))
@@ -870,7 +876,8 @@ def phase_duf_kernels(card):
             for name, (abs_err, rel_err) in errs.items():
                 ok = rel_err <= TOL[key]
                 extra = (f"; new channels finite: {finite}, the rest of the NaN-poisoned buffer "
-                         f"bitwise unchanged: {kept}") if name == "duf_block" else (
+                         f"bitwise unchanged: {kept}; bitwise equal over two launches: {same9}"
+                         ) if name == "duf_block" else (
                              f"; bitwise equal over two launches: {same10}")
                 print(f"[7a kernel] {name} {label} (F {f}, G {g}, {mode}, planes [{lo},{hi})) "
                       f"{key}: max_abs_err {abs_err:.3e}, max_rel_err {rel_err:.3e} (tolerance "
@@ -882,6 +889,8 @@ def phase_duf_kernels(card):
                 fail(f"duf_block {label} {key}: read outside its window or wrote outside [F, F+G)")
             if not same10:
                 fail(f"duf_dense {label} {key}: two launches differ")
+            if same9 is False:
+                fail(f"duf_block {label} {key}: two launches differ")
             if dt != torch.bfloat16:
                 continue
             wc = p.wb.to(dt).permute(4, 3, 0, 1, 2)
@@ -909,7 +918,7 @@ def phase_duf_kernels(card):
                 if label == DUF_TIMED:
                     results[name] = dict(max_abs_err=errs[name][0], ms=ms, plain_ms=plain_ms,
                                          bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
-            del got, ref, buf, scratch, x
+            del got, again, ref, buf, scratch, x
             torch.cuda.empty_cache()
     return results
 

@@ -1,6 +1,6 @@
-// The 3x3x3 growth convolution of DUF's dense blocks: the routine shared by
-// kernel 9 (duf_block.cu, after its pointwise chain) and kernel 10
-// (duf_dense.cu).
+// The 3x3x3 growth convolution of DUF's dense blocks on CUDA cores: the
+// routine shared by the float32 entries of kernel 9 (duf_block.cu, after its
+// pointwise chain) and kernel 10 (duf_dense.cu).
 //
 //   out[o, y, x, g] = bias[g] + sum_{dt,dh,dw,c} in[o+off+dt, y-1+dh, x-1+dw, c]
 //                                                * W[dt, dh, dw, c, g]
@@ -47,16 +47,16 @@ struct Conv333 {
 
 // The tile of block (blockIdx.x = pixel tile, blockIdx.y = output plane o,
 // blockIdx.z = sample b).
-//   in:   [nb, n_in, h, w, ldi] of T; channels [0, f) are read
-//   wt:   [3, 3, 3, f, G] float (DHWIO), already rounded to T
+//   in:   [nb, n_in, h, w, ldi] float; channels [0, f) are read
+//   wt:   [3, 3, 3, f, G] float (DHWIO)
 //   bias: [G] float, or nullptr for none
 //   out:  element (b, o, y, x, g) at
 //         out[(((b * out_planes + out_base + o) * h + y) * w + x) * ldo + c_off + g]
-// Every output of the tile inside the image is written, rounded once to T.
-template <typename T, int G>
-__device__ void conv3x3x3_tile(const T* __restrict__ in, int n_in, int h, int w, int ldi, int f,
+// Every output of the tile inside the image is written.
+template <int G>
+__device__ void conv3x3x3_tile(const float* __restrict__ in, int n_in, int h, int w, int ldi, int f,
                                int off, const float* __restrict__ wt,
-                               const float* __restrict__ bias, T* __restrict__ out,
+                               const float* __restrict__ bias, float* __restrict__ out,
                                int out_planes, int out_base, int ldo, int c_off, float* smem) {
   using C = Conv333<G>;
   float* s_in = smem;
@@ -73,7 +73,7 @@ __device__ void conv3x3x3_tile(const T* __restrict__ in, int n_in, int h, int w,
   for (int dt = 0; dt < 3; ++dt) {
     const int q = o + off + dt;
     if (q < 0 || q >= n_in) continue;  // a temporal pad plane: its taps are zero
-    const T* src = in + ((size_t)b * n_in + q) * plane * ldi;
+    const float* src = in + ((size_t)b * n_in + q) * plane * ldi;
     for (int c0 = 0; c0 < f; c0 += C::CK) {
       __syncthreads();  // the previous chunk's reads of shared memory are done
       for (int i = tid; i < C::IH * C::IW * C::CK; i += C::THREADS) {
@@ -81,7 +81,7 @@ __device__ void conv3x3x3_tile(const T* __restrict__ in, int n_in, int h, int w,
         const int gy = y0 - 1 + p / C::IW, gx = x0 - 1 + p % C::IW;
         float v = 0.f;
         if (gy >= 0 && gy < h && gx >= 0 && gx < w && c0 + c < f)
-          v = to_f32(src[((size_t)gy * w + gx) * ldi + c0 + c]);
+          v = src[((size_t)gy * w + gx) * ldi + c0 + c];
         s_in[p * C::CS + c] = v;
       }
       // s_w[(tap * CK + c) * G + g] = W[dt, tap / 3, tap % 3, c0 + c, g]
@@ -116,15 +116,15 @@ __device__ void conv3x3x3_tile(const T* __restrict__ in, int n_in, int h, int w,
 
   const int gy = y0 + py;
   if (gy >= h) return;
-  T* dst = out + ((size_t)b * out_planes + out_base + o) * plane * ldo + c_off + cg * C::CPT;
+  float* dst = out + ((size_t)b * out_planes + out_base + o) * plane * ldo + c_off + cg * C::CPT;
 #pragma unroll
   for (int p = 0; p < C::PPT; ++p) {
     const int gx = x0 + px + p;
     if (gx >= w) continue;
-    T* d = dst + ((size_t)gy * w + gx) * ldo;
+    float* d = dst + ((size_t)gy * w + gx) * ldo;
 #pragma unroll
     for (int j = 0; j < C::CPT; ++j)
-      d[j] = from_f32<T>(acc[p][j] + (bias != nullptr ? bias[cg * C::CPT + j] : 0.f));
+      d[j] = acc[p][j] + (bias != nullptr ? bias[cg * C::CPT + j] : 0.f);
   }
 }
 

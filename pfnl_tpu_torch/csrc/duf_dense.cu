@@ -22,9 +22,10 @@
 // atomics: bitwise reproducible.
 //
 // float32 (tests and the float32 model; no float32 main path runs it): the
-// first design, the float-FMA tile of duf_conv.cuh that kernel 9 also runs,
-// one block per 8 x 16 pixel tile, weights as float [3,3,3,F,G].  Tensor
-// cores would mean TF32, which cannot hold the 1e-4 float32 check.
+// first design, the float-FMA tile of duf_conv.cuh that kernel 9's float32
+// entry also runs, one block per 8 x 16 pixel tile, weights as float
+// [3,3,3,F,G].  Tensor cores would mean TF32, which cannot hold the 1e-4
+// float32 check.
 //
 // Bound on the H100: 27 F G multiply-adds per output pixel (F = 64..432, G =
 // 16) against F + G elements moved: compute-bound at every DUF width
@@ -37,61 +38,53 @@
 
 namespace {
 
-template <typename T, int G>
+// float32: block (pixel tile, output plane, sample)
+template <int G>
 __global__ void __launch_bounds__(pfnl::Conv333<G>::THREADS)
-duf_dense_conv_kernel(const T* __restrict__ x, int t_in, int h, int w, int f, int off,
-                      const float* __restrict__ wk, T* __restrict__ out, int t_out) {
+duf_dense_conv_kernel(const float* __restrict__ x, int t_in, int h, int w, int f, int off,
+                      const float* __restrict__ wk, float* __restrict__ out, int t_out) {
   extern __shared__ __align__(16) float smem[];
-  pfnl::conv3x3x3_tile<T, G>(x, t_in, h, w, f, f, off, wk, nullptr, out, t_out, 0, G, 0, smem);
+  pfnl::conv3x3x3_tile<G>(x, t_in, h, w, f, f, off, wk, nullptr, out, t_out, 0, G, 0, smem);
 }
 
-template <typename T, int G>
-int launch_conv(const void* x, const float* wk, void* out, int nb, int t_in, int h, int w, int f,
-                int pad_t, cudaStream_t stream) {
+template <int G>
+int launch_conv(const float* x, const float* wk, float* out, int nb, int t_in, int h, int w,
+                int f, int pad_t, cudaStream_t stream) {
   using C = pfnl::Conv333<G>;
   const int t_out = pad_t ? t_in : t_in - 2;
-  auto k = duf_dense_conv_kernel<T, G>;
+  auto k = duf_dense_conv_kernel<G>;
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_BYTES);
   const dim3 grid(C::tiles(h, w), t_out, nb);
-  k<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(static_cast<const T*>(x), t_in, h, w, f,
-                                                 pad_t ? -1 : 0, wk, static_cast<T*>(out), t_out);
+  k<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(x, t_in, h, w, f, pad_t ? -1 : 0, wk, out,
+                                                 t_out);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* x, const float* wk, void* out, int nb, int t_in, int h, int w, int f,
-           int g, int pad_t, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (g == 16) return launch_conv<T, 16>(x, wk, out, nb, t_in, h, w, f, pad_t, s);
-  if (g == 32) return launch_conv<T, 32>(x, wk, out, nb, t_in, h, w, f, pad_t, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 using bf16 = __nv_bfloat16;
 
 // bf16: block (output plane, pixel tile, sample)
 template <int G, bool ASYNC>
-__global__ void __launch_bounds__(pfnl::Conv333Mma<G>::THREADS)
-duf_dense_bf16_mma_kernel(const bf16* __restrict__ x, int t_in, int h, int w, int f, int off,
-                          const bf16* __restrict__ wk, bf16* __restrict__ out, int t_out) {
+__global__ void __launch_bounds__(pfnl::ConvMma<G>::THREADS)
+duf_dense_bf16_mma_kernel(const pfnl::ConvMmaArgs p) {
   extern __shared__ __align__(16) bf16 smem_bf16[];
-  pfnl::conv3x3x3_mma_tile<G, ASYNC>(x, t_in, h, w, f, f, off, wk, nullptr, out, t_out, 0, G, 0,
-                                     blockIdx.x, blockIdx.y, blockIdx.z, smem_bf16);
+  pfnl::conv_mma_tile<G, 2, ASYNC, false>(p, blockIdx.x, blockIdx.y, blockIdx.z, smem_bf16);
 }
 
 template <int G>
 int launch_mma(const void* x, const void* wk, void* out, int nb, int t_in, int h, int w, int f,
                int pad_t, cudaStream_t stream) {
-  using C = pfnl::Conv333Mma<G>;
+  using C = pfnl::ConvMma<G>;
   const int t_out = pad_t ? t_in : t_in - 2;
   const bool async = f % 8 == 0 && ((reinterpret_cast<uintptr_t>(x) |
                                      reinterpret_cast<uintptr_t>(wk)) & 15) == 0;
   auto k = async ? &duf_dense_bf16_mma_kernel<G, true> : &duf_dense_bf16_mma_kernel<G, false>;
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_BYTES);
+  // DHWIO [3,3,3,f,G]: weight row (dt, tap, c) is dt * 9f + tap * f + c
+  const pfnl::ConvMmaArgs p{static_cast<const bf16*>(x), t_in, h, w, f, f, pad_t ? -1 : 0, 3,
+                            static_cast<const bf16*>(wk), 9 * f, f, nullptr,
+                            static_cast<bf16*>(out), t_out, 0, G, 0};
   const dim3 grid(t_out, C::tiles(h, w), nb);
-  k<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(static_cast<const bf16*>(x), t_in, h, w, f,
-                                                 pad_t ? -1 : 0, static_cast<const bf16*>(wk),
-                                                 static_cast<bf16*>(out), t_out);
+  k<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -106,7 +99,12 @@ extern "C" {
 
 int pfnl_duf_dense_f32(const void* x, const float* wk, void* out, int nb, int t_in, int h, int w,
                        int f, int g, int pad_t, void* stream) {
-  return launch<float>(x, wk, out, nb, t_in, h, w, f, g, pad_t, stream);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xf = static_cast<const float*>(x);
+  auto of = static_cast<float*>(out);
+  if (g == 16) return launch_conv<16>(xf, wk, of, nb, t_in, h, w, f, pad_t, s);
+  if (g == 32) return launch_conv<32>(xf, wk, of, nb, t_in, h, w, f, pad_t, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int pfnl_duf_dense_bf16(const void* x, const void* wk, void* out, int nb, int t_in, int h, int w,

@@ -1,5 +1,7 @@
 // Tensor-core and async-copy primitives of sm_80+ used by the bf16 kernels
-// (kernel 1 in nonlocal_flash.cu, kernel 10's tile in duf_conv_mma.cuh):
+// (kernel 1 in nonlocal_flash.cu, kernels 2-3 in pfrb.cu, kernel 9's product
+// in duf_block.cu, and the conv tile of kernels 4, 9 and 10 in
+// duf_conv_mma.cuh):
 // mma.sync m16n8k16 bf16 with float32 accumulation, ldmatrix, cp.async.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):

@@ -11,17 +11,18 @@ name (kernels 4 and 9 are two launches from one call, counted once):
   nonlocal_flash  kernel 1   ops/cuda/nonlocal_flash.py  csrc/nonlocal_flash.cu, mma.cuh
   pfrb_a          kernel 2   ops/cuda/pfrb.py            csrc/pfrb.cu
   pfrb_b          kernel 3   ops/cuda/pfrb.py            csrc/pfrb.cu
-  pfnl_tail       kernel 4   ops/cuda/pfnl_tail.py       csrc/pfnl_tail.cu
+  pfnl_tail       kernel 4   ops/cuda/pfnl_tail.py       csrc/pfnl_tail.cu, duf_conv_mma.cuh
   pfrb_bwd_b      kernel 5   ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
   pfrb_bwd_a      kernel 6   ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
   bounded_splat   kernel 7   ops/cuda/bounded_splat.py   csrc/bounded_splat.cu
   spmc_splat      kernel 8   ops/cuda/spmc_splat.py      csrc/spmc_splat.cu
-  duf_block       kernel 9   ops/cuda/duf_block.py       csrc/duf_block.cu, duf_conv.cuh
-  duf_dense       kernel 10  ops/cuda/duf_dense.py       csrc/duf_dense.cu, duf_conv_mma.cuh
+  duf_block       kernel 9   ops/cuda/duf_block.py       csrc/duf_block.cu, duf_conv_mma.cuh
                                                          (bf16), duf_conv.cuh (float32)
+  duf_dense       kernel 10  ops/cuda/duf_dense.py       csrc/duf_dense.cu, as kernel 9
 
-The bf16 entries of kernels 1 and 10 run on the tensor cores (mma.sync);
-every other entry, and the float32 ones of 1 and 10, on CUDA cores.
+The bf16 entries of kernels 1-4, 9 and 10 run on the tensor cores
+(mma.sync; 4, 9 and 10 on the implicit-GEMM tile of duf_conv_mma.cuh);
+kernels 5-8, and the float32 entries of the others, on CUDA cores.
 
 Kernels 1-6 serve PFNL; 7 and 8 the flow families, reached through
 ops/warp.py's `forward_warp_local` and `forward_warp_spmc`; 9 and 10 DUF's

@@ -186,3 +186,11 @@ def weight_f32(w: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
     casts it at use), then held as contiguous float32 for the kernel.
     Callers have passed check_no_grad, so no graph is lost here."""
     return w.detach().to(device=device, dtype=dtype).float().contiguous()
+
+
+def kernel_weight(w: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    """A conv or product weight as the entry for `dtype` reads it: bf16 for
+    the tensor-core entries, float32 otherwise; rounded to dtype either way."""
+    if dtype == torch.bfloat16:
+        return w.detach().to(device=device, dtype=dtype).contiguous()
+    return weight_f32(w, dtype, device)

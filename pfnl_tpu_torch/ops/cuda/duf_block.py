@@ -7,6 +7,8 @@ pfnl_tpu/ops/pallas/duf_block.py, driven by `dense_backbone` as
 a contiguous channels-last [B,T,H,W,C_fin] tensor with no pad stored; a
 block writes its G new channels into it in place, which saves the copy of
 the whole buffer that a functional update would take.  Inference only.
+bf16 runs the tensor-core kernels (Wa and Wb handed over as bf16, rounded
+once here), float32 the CUDA-core ones (weights as float32).
 """
 
 import torch
@@ -15,7 +17,7 @@ from pfnl_tpu_torch.ops.cuda import _build
 from pfnl_tpu_torch.ops.duf_ref import (BlockParams, backbone_loop, block_out_planes,
                                         dense_backbone_ref, dense_block_ref)
 
-GROWTHS = (16, 32)  # the G the kernels of duf_conv.cuh are built for
+GROWTHS = (16, 32)  # the G the growth-conv tiles (duf_conv.cuh, duf_conv_mma.cuh) are built for
 
 
 def dense_block(buf: torch.Tensor, p: BlockParams, in_lo: int, in_hi: int,
@@ -50,7 +52,7 @@ def dense_block(buf: torch.Tensor, p: BlockParams, in_lo: int, in_hi: int,
     sfx = _build.suffix(dt)
     sa, oa, sb, ob, bb = (v.detach().to(device=dev, dtype=torch.float32).contiguous()
                           for v in (p.sa, p.oa, p.sb, p.ob, p.bb))
-    wa, wb = (_build.weight_f32(v, dt, dev) for v in (p.wa, p.wb))
+    wa, wb = (_build.kernel_weight(v, dt, dev) for v in (p.wa, p.wb))
     _build.call(f"pfnl_duf_block_{sfx}", buf, scratch, sa, oa, wa, sb, ob, wb, bb, nb, t, h, w,
                 c, f, g, in_lo, in_hi, int(p.mode == "thw"))
     _build.launches["duf_block"] += 1

@@ -3,8 +3,9 @@
 Counterpart of `_conv3x3x3_tap_fwd_impl` (body `_kernel`) in
 pfnl_tpu/ops/pallas/duf_dense.py; the plain version is `conv3x3x3_ref`
 (ops/duf_ref.py).  bf16 runs the tensor-core tile of
-csrc/duf_conv_mma.cuh (weights as bf16 [3,3,3,F,G]), float32 the CUDA-core
-tile of csrc/duf_conv.cuh (weights as float32).  `conv3x3x3` is the
+csrc/duf_conv_mma.cuh (weights as bf16 [3,3,3,F,G]), which kernels 4 and 9
+share; float32 the CUDA-core tile of csrc/duf_conv.cuh (weights as
+float32).  `conv3x3x3` is the
 autograd-aware entry the model calls (`Conv3x3x3`: the kernel forward,
 and for the backward the plain conv's vector-Jacobian product, as JAX's
 custom VJP recomputes XLA's).
@@ -36,12 +37,7 @@ def duf_dense(x: torch.Tensor, wk: torch.Tensor, pad_t: bool) -> torch.Tensor:
         raise ValueError(f"duf_dense: {t} frames are too few for a VALID-T conv")
     dt = x.dtype
     sfx = _build.suffix(dt)
-    # bf16: the tensor-core tile reads the weights as bf16 [27, F, G], rounded once
-    # here; float32: the CUDA-core tile reads them as float
-    if dt == torch.bfloat16:
-        wkc = wk.detach().to(device=x.device, dtype=dt).contiguous()
-    else:
-        wkc = _build.weight_f32(wk, dt, x.device)
+    wkc = _build.kernel_weight(wk, dt, x.device)
     out = torch.empty(nb, t_out, h, w, g, dtype=dt, device=x.device)
     _build.call(f"pfnl_duf_dense_{sfx}", x, wkc, out, nb, t, h, w, f, g, int(bool(pad_t)))
     _build.launches["duf_dense"] += 1

@@ -4,7 +4,9 @@ Counterpart of `pfnl_tail_pack` in pfnl_tpu/ops/pallas/pfnl_tail.py; the
 plain version is `pfnl_tail_ref` (ops/pfrb_ref.py).  `compose_d2s4` and
 the bicubic add stay in PyTorch.  `merge_tail` is the autograd-aware
 entry the model calls (MergeTail: kernel forward, plain recompute
-backward).
+backward).  bf16 runs the tensor-core kernels (Wm1 and the folded Wm2
+handed over as bf16, rounded once here), float32 the CUDA-core ones
+(weights as float32); biases go as float32 rounded to the activation dtype.
 """
 
 import torch
@@ -30,13 +32,15 @@ def pfnl_tail(feat5, wm1, bm1, km2, bm2):
                          f"do not fit feat {tuple(feat5.shape)}")
     dt, dev = feat5.dtype, feat5.device
     sfx = _build.suffix(dt)
-    wm1f = _build.weight_f32(wm1, dt, dev)
+    wm1k = _build.kernel_weight(wm1, dt, dev)
     bm1f = _build.weight_f32(bm1, dt, dev)
-    wf = fold_d2s_conv(_build.weight_f32(km2, dt, dev)).contiguous()
+    # the fold puts at most one HR tap in each LR entry, so folding after the
+    # rounding is exact
+    wf = fold_d2s_conv(_build.kernel_weight(km2, dt, dev)).contiguous()
     bf = _build.weight_f32(bm2, dt, dev).repeat(4).contiguous()
     m = torch.empty(n, h, w, MERGE, dtype=dt, device=dev)
     out = torch.empty(n, h, w, MERGE, dtype=dt, device=dev)
-    _build.call(f"pfnl_tail_{sfx}", feat5, wm1f, bm1f, wf, bf, m, out, n, t, h, w)
+    _build.call(f"pfnl_tail_{sfx}", feat5, wm1k, bm1f, wf, bf, m, out, n, t, h, w)
     _build.launches["pfnl_tail"] += 1
     return out
 

@@ -17,14 +17,6 @@ from pfnl_tpu_torch.ops.pfrb_ref import pfrb_a_ref, pfrb_b_ref
 CHANNELS = 64
 
 
-def _weight(p, dtype, device):
-    """A conv or fusion kernel as the entry for `dtype` reads it: bf16 for
-    the tensor-core entries, float32 otherwise; rounded to dtype either way."""
-    if dtype == torch.bfloat16:
-        return p.detach().to(device=device, dtype=dtype).contiguous()
-    return _build.weight_f32(p, dtype, device)
-
-
 def _check_feat(name, feat):
     if feat.dim() != 5 or feat.shape[-1] != CHANNELS:
         raise ValueError(f"{name}: feat must be [N,T,H,W,{CHANNELS}], got {tuple(feat.shape)}")
@@ -42,7 +34,7 @@ def pfrb_a(feat, w1, b1, wfuse, bfuse):
         raise ValueError(f"pfrb_a: W1 {tuple(w1.shape)} / Wfuse {tuple(wfuse.shape)} "
                          f"do not fit feat {tuple(feat.shape)}")
     sfx = _build.suffix(feat.dtype)
-    w1f, wff = (_weight(p, feat.dtype, feat.device) for p in (w1, wfuse))
+    w1f, wff = (_build.kernel_weight(p, feat.dtype, feat.device) for p in (w1, wfuse))
     b1f, bff = (_build.weight_f32(p, feat.dtype, feat.device) for p in (b1, bfuse))
     i1 = torch.empty_like(feat)
     base = torch.empty(n, h, w, c, dtype=feat.dtype, device=feat.device)
@@ -68,7 +60,7 @@ def pfrb_b(feat, i1, base, w2f, w2b, b2):
     if tuple(w2f.shape) != (3, 3, c, c) or tuple(w2b.shape) != (3, 3, c, c):
         raise ValueError("pfrb_b: W2f and W2b must be [3,3,64,64]")
     sfx = _build.suffix(feat.dtype)
-    w2ff, w2bf = (_weight(p, feat.dtype, feat.device) for p in (w2f, w2b))
+    w2ff, w2bf = (_build.kernel_weight(p, feat.dtype, feat.device) for p in (w2f, w2b))
     b2f = _build.weight_f32(b2, feat.dtype, feat.device)
     out = torch.empty_like(feat)
     _build.call(f"pfnl_pfrb_b_{sfx}", feat, i1, base, w2ff, w2bf, b2f, out, n, t, h, w)

@@ -14,9 +14,11 @@ One PFRB, per sample (T frames, C = 64 channels, HWIO kernels):
 Weights are cast to the activation dtype at use, as the JAX package does.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pfnl_tpu_torch.ops.constants import on_device
 from pfnl_tpu_torch.ops.conv import conv2d_same
 from pfnl_tpu_torch.ops.shuffle import depth_to_space
 
@@ -118,15 +120,12 @@ def pfrb_bwd_a_ref(dz1, feat, g, w1):
     return d_feat.contiguous(), dw1, db1
 
 
-def fold_d2s_conv(km2: torch.Tensor) -> torch.Tensor:
-    """Fold conv3x3-after-depth_to_space(2) onto the LR grid.
-
-    km2: [3,3,C12,C12] HR kernel -> [3,3,4*C12,4*C12] LR kernel whose input
-    channel s*C12+ci is the d2s sub-pixel group s=(sr*2+sc) and output
-    channel p*C12+co the output phase p=(pr*2+pc).  Each LR entry receives
-    at most one HR tap, so the fold is exact in any dtype."""
-    c12 = km2.shape[-1]
-    out = km2.new_zeros(3, 3, 4 * c12, 4 * c12)
+def _fold_index(c12: int) -> np.ndarray:
+    """[3,3,4*c12,4*c12] int64: for each LR entry of the folded kernel, the
+    flat index of the HR tap of km2 [3,3,c12,c12] it holds, or 9*c12*c12
+    (a zero appended after km2) where it holds none."""
+    idx = np.full((3, 3, 4 * c12, 4 * c12), 9 * c12 * c12, np.int64)
+    ci, co = np.meshgrid(np.arange(c12), np.arange(c12), indexing="ij")
     for pr in range(2):
         for pc in range(2):
             for dy in range(3):
@@ -135,10 +134,24 @@ def fold_d2s_conv(km2: torch.Tensor) -> torch.Tensor:
                     sr, sc = ry % 2, rx % 2               # input sub-pixel
                     dy_lr, dx_lr = (ry - sr) // 2, (rx - sc) // 2
                     s, p = sr * 2 + sc, pr * 2 + pc
-                    out[dy_lr + 1, dx_lr + 1,
-                        s * c12:(s + 1) * c12,
-                        p * c12:(p + 1) * c12] += km2[dy, dx]
-    return out
+                    dst = idx[dy_lr + 1, dx_lr + 1, s * c12:(s + 1) * c12, p * c12:(p + 1) * c12]
+                    assert (dst == 9 * c12 * c12).all(), "two HR taps in one LR entry"
+                    dst[...] = ((dy * 3 + dx) * c12 + ci) * c12 + co
+    return idx
+
+
+def fold_d2s_conv(km2: torch.Tensor) -> torch.Tensor:
+    """Fold conv3x3-after-depth_to_space(2) onto the LR grid.
+
+    km2: [3,3,C12,C12] HR kernel -> [3,3,4*C12,4*C12] LR kernel whose input
+    channel s*C12+ci is the d2s sub-pixel group s=(sr*2+sc) and output
+    channel p*C12+co the output phase p=(pr*2+pc).  Each LR entry receives
+    at most one HR tap, so the fold is exact in any dtype.  One gather
+    through an index held on the device (a loop of slice updates would
+    launch 37 kernels per call, which set the time of a PFNL tail call)."""
+    c12 = km2.shape[-1]
+    idx = on_device(("fold_d2s", c12), lambda: _fold_index(c12), km2.device, torch.int64)
+    return torch.cat([km2.reshape(-1), km2.new_zeros(1)])[idx]
 
 
 def pfnl_tail_ref(feat5, wm1, bm1, km2, bm2):

@@ -201,6 +201,29 @@ def test_dense_backbone_ref_matches_fused_kernel(which):
     _close(got, want)
 
 
+@pytest.mark.parametrize("which", ["thw", "hw"])
+def test_dense_backbone_ref_bf16_matches_fused_kernel(which):
+    """In bf16: the plain kernel 9 rounds where the Pallas kernel does
+    (relu(sa*x+oa) and `a` to bf16, float32 sums, the new channels once), as
+    kernel 9's tensor-core entry does.  One SAME-T and one VALID-T block (T 7
+    -> 5) at X64_SHAPE against the Pallas kernel in interpret mode: the new
+    channels within one bf16 ulp (2^-8) of their max|Pallas| (0.21 and 0.16
+    ulps on the CPU: only the order of the float32 sums differs), conv1's 64
+    channels passed through bitwise."""
+    rng = np.random.default_rng(4)
+    x64 = rng.random(X64_SHAPE).astype(np.float32)
+    blocks = _blocks(rng)
+    blocks = {"thw": blocks[:1], "hw": _blocks(rng, modes=("hw",))}[which]
+    want = dense_backbone_fused(jnp.asarray(x64, jnp.bfloat16), _jax_blocks(blocks))
+    want = np.asarray(want.astype(jnp.float32))
+    got = dense_backbone_ref(_t(x64).bfloat16(), _torch_blocks(blocks))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got[..., :64], want[..., :64])
+    ulp = 2.0 ** -8 * np.abs(want[..., 64:]).max()
+    assert np.abs(got[..., 64:] - want[..., 64:]).max() <= ulp
+
+
 def test_dense_block_pads_after_activation():
     """`a` is zero at the spatial border and on the temporal pad planes, as
     the reference pads after the activation; padding the buffer's zeros

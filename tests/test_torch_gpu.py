@@ -161,6 +161,22 @@ def test_pfnl_tail_kernel(gen, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [8, 1])
+def test_pfnl_tail_reads_only_its_input(gen, dtype, offset):
+    """feat as a view into a NaN-filled allocation, 16-byte aligned (offset
+    8) or not (offset 1, the element-wise staging of the bf16 kernel): halo
+    pixels outside the image are never read, and the output is finite and
+    right."""
+    n, t, h, w = 1, 7, 21, 45
+    feat = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
+    args = (_randn(gen, 3, 3, t * 64, 48, scale=0.02), _randn(gen, 48, scale=0.1),
+            _randn(gen, 3, 3, 12, 12, scale=0.1), _randn(gen, 12, scale=0.1))
+    got = pfnl_tail(_nan_view(feat, offset), *args)
+    assert torch.isfinite(got).all()
+    _assert_close(got, pfnl_tail_ref(feat, *args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37)])
 def test_pfrb_bwd_kernels(gen, dtype, shape):
     """Kernels 5 and 6 at ragged tiles; their weight gradients are bitwise
@@ -381,15 +397,21 @@ def _bits(x):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("extra", [8, 3])
 @pytest.mark.parametrize("f,g,mode,lo,hi", [(64, 16, "thw", 0, 7), (96, 16, "thw", 0, 5),
-                                            (80, 32, "hw", 1, 6), (48, 32, "thw", 0, 3)])
-def test_duf_block_kernel(gen, dtype, f, g, mode, lo, hi):
+                                            (80, 32, "hw", 1, 6), (48, 32, "thw", 0, 3),
+                                            (80, 16, "thw", 0, 7), (400, 16, "hw", 2, 7),
+                                            (36, 16, "thw", 1, 6)])
+def test_duf_block_kernel(gen, dtype, f, g, mode, lo, hi, extra):
     """Kernel 9 at ragged tiles on a buffer that holds NaN wherever the block
     may not read (other planes, channels >= F) and a NaN scratch: the new
     channels are finite and within tolerance of the plain version, and
-    every other element of the buffer is bitwise unchanged."""
+    every other element of the buffer is bitwise unchanged.  F 80 and 400
+    are ragged against the bf16 product's 128-wide N tile; a buffer of F+G+3
+    channels (not a multiple of 8) takes its element-wise staging, and F 36
+    also the product's element-wise stores of `a`."""
     p = _duf_block_params(gen, f, g, mode)
-    buf = torch.full((2, 7, 13, 21, f + g + 8), float("nan"), device="cuda").to(dtype)
+    buf = torch.full((2, 7, 13, 21, f + g + extra), float("nan"), device="cuda").to(dtype)
     buf[:, lo:hi, :, :, :f] = torch.rand((2, hi - lo, 13, 21, f), generator=gen,
                                          device="cuda").to(dtype)
     scratch = torch.full((2 * 7 * 13 * 21 * f,), float("nan"), device="cuda").to(dtype)
@@ -436,12 +458,23 @@ def test_duf_dense_reads_only_its_input(gen, dtype, pad_t, offset):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("kernel", ["nonlocal_flash", "duf_dense", "pfrb_a", "pfrb_b"])
+@pytest.mark.parametrize("kernel", ["nonlocal_flash", "duf_dense", "pfrb_a", "pfrb_b",
+                                    "pfnl_tail", "duf_block"])
 def test_kernels_bitwise_equal_over_two_launches(gen, dtype, kernel):
-    """Kernels 1, 2, 3 and 10 sum in a fixed order, with no atomics."""
+    """Kernels 1-4, 9 and 10 sum in a fixed order, with no atomics."""
     if kernel == "nonlocal_flash":
         args = _attention_inputs(gen, dtype, 2, 1000, 777, 84)
         fn = nonlocal_flash
+    elif kernel == "pfnl_tail":
+        args = (_randn(gen, 2, 7, 37, 70, 64, scale=0.5).to(dtype),
+                _randn(gen, 3, 3, 7 * 64, 48, scale=0.02), _randn(gen, 48, scale=0.1),
+                _randn(gen, 3, 3, 12, 12, scale=0.1), _randn(gen, 12, scale=0.1))
+        fn = pfnl_tail
+    elif kernel == "duf_block":
+        buf = torch.rand((2, 7, 37, 70, 160), generator=gen, device="cuda").to(dtype)
+        p = _duf_block_params(gen, 144, 16, "thw")
+        args = (buf,)
+        fn = lambda b: dense_block(b.clone(), p, 0, 7)  # noqa: E731  (in place: a fresh copy)
     elif kernel == "duf_dense":
         args = (torch.rand((2, 7, 37, 70, 64), generator=gen, device="cuda").to(dtype),
                 _randn(gen, 3, 3, 3, 64, 16, scale=(27 * 64) ** -0.5), True)

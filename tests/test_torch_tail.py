@@ -1,6 +1,7 @@
 """Kernel 4's module: the port's merge tail (through the kernel wrapper,
 which takes its plain version on a CPU tensor) against the JAX package's
-Pallas `pfnl_tail_pack` (interpret mode) and `_xla_tail_only`, on the CPU."""
+Pallas `pfnl_tail_pack` (interpret mode) and `_xla_tail_only`, on the CPU,
+in float32 and in bf16."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -18,6 +19,11 @@ from pfnl_tpu_torch.ops.pfrb_ref import compose_d2s4, tail_only_ref
 
 ATOL = 2e-5
 N, T, H, W, C = 1, 7, 9, 13, 64
+# bf16: the Pallas kernel (and kernel 4's tensor-core entry) rounds m and the output once
+# each from float32 sums; the plain version rounds each conv's output and then each bias
+# add to bf16.  The case below gives 1.05 bf16 ulps (2^-8) of max|Pallas| on the CPU; a
+# wrong tap, frame or bias gives O(1).
+BF16_ULPS = 4
 
 
 @pytest.fixture(scope="module")
@@ -35,6 +41,9 @@ def case():
         "hr": np.asarray(_xla_tail_only(jnp.asarray(feat), *jw)),
     }
     args = [torch.from_numpy(a) for a in (feat, wm1, bm1, km2, bm2)]
+    packed16 = pad_to_pack_layout(jnp.asarray(feat, jnp.bfloat16), rows=pick_rows(H))
+    want["bf16"] = np.asarray(pfnl_tail_pack(packed16, *jw, t=T, h=H, w=W, rows=pick_rows(H))
+                              .astype(jnp.float32))
     return args, want
 
 
@@ -55,3 +64,13 @@ def test_tail_composed_matches_xla_tail(case):
 def test_unfolded_tail_matches_xla_tail(case):
     args, want = case
     np.testing.assert_allclose(tail_only_ref(*args).numpy(), want["hr"], atol=ATOL)
+
+
+def test_bf16_tail_matches_pallas_folded_map(case):
+    """The plain tail in bf16 (feat bf16, weights cast at use) against
+    pfnl_tail_pack on bf16 input in interpret mode, within BF16_ULPS."""
+    args, want = case
+    got = pfnl_tail(args[0].bfloat16(), *args[1:])
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (N, H, W, 48)
+    ulp = 2.0 ** -8 * np.abs(want["bf16"]).max()
+    assert np.abs(got.float().numpy() - want["bf16"]).max() <= BF16_ULPS * ulp
