@@ -11,7 +11,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      ptxas register / shared-memory / spill report; the HMMA (tensor-core
      mma) instructions in each kernel entry's SASS (cuobjdump -sass),
      failing if a bf16 entry of kernel 1, 2, 3, 4, 9 or 10 has none (all
-     six run on the tensor cores in bf16);
+     six run on the tensor cores in bf16), or if a float32 entry of kernel
+     5 or 6 (3xTF32 on the tensor cores: HMMA.1688.F32.TF32) has none or
+     spills;
   3. each kernel against its plain PyTorch version at the main path's
      shapes (PFNL 7 frames, LR 180x320, batch 2), in float32 (TF32 off on
      the plain side) and in bfloat16, with the tolerance stated, and the
@@ -34,8 +36,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      frames, float32):
      a. kernels 5 and 6 (the PFRB backward) against their plain versions
         at the training shape [16,7,32,32,64] and at [2,7,180,320,64], in
-        float32 and bfloat16, with their times beside the plain versions'
-        and their weight gradients bitwise equal over two launches;
+        float32 and bfloat16, with their times and TFLOP/s beside the plain
+        versions' and their weight gradients bitwise equal over two
+        launches; in float32 also the 3xTF32 bound (three TF32 products a
+        float32 product over 495 TFLOP/s) beside the float32 CUDA-core one
+        (over 67), and the time of cuDNN's conv backward for the same
+        function (aten.convolution_backward, all three gradients, TF32 off:
+        kernel 6 one call plus the add of g; kernel 5 a composite of two
+        calls, the frames and the base, plus the frame sum), with its error
+        against plain as a note, not a check (cuDNN's float32 weight
+        gradient may take FFT routes about 2e-4 off);
      b. one fixed batch through full-width PFNL: the kernel path's loss and
         every parameter's gradient against pure autograd on the plain
         path (TF32 off), worst relative L2 error per parameter;
@@ -83,9 +93,12 @@ but for kernels 5 and 6, float32 at the training shape); `bound_ms`, the
 least time the card could take for the same work (the larger of the
 bytes each call must move over 3.35 TB/s and its operations over the
 peak rate of their type, 989 TFLOP/s bf16 or 67 float32, NVIDIA's data
-sheet), with what sets it; `library_ms`, one PyTorch call computing the
-same function where there is one (kernel 1: scaled_dot_product_attention
-with scale 1; kernel 10: F.conv3d), else null.  The last line is
+sheet; kernels 5 and 6 in float32: three times their operations over 495
+TFLOP/s TF32), with what sets it; `library_ms`, one PyTorch call computing
+the same function where there is one (kernel 1:
+scaled_dot_product_attention with scale 1; kernel 10: F.conv3d; kernels
+5 and 6: cuDNN's conv backward as in phase 5a, two calls for kernel 5),
+else null.  The last line is
 {"ok": true, "device": {...}}.  There is no CPU fallback: without a CUDA
 device the script fails before printing any result.
 """
@@ -124,7 +137,9 @@ Y_FAMILIES = {"vespcn": ("bounded_splat", True), "drvsr": ("spmc_splat", True),
 TRUNK_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
 PFNL_KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a")
 HBM_PEAK_GBS = 3350.0                   # H100 SXM HBM3, NVIDIA's data sheet
-PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 67.0}  # dense bf16 tensor cores; float32 CUDA cores
+# dense bf16 and TF32 tensor cores; float32 CUDA cores.  A 3xTF32 kernel (the float32 entries
+# of kernels 5 and 6) runs three TF32 products for each float32 one
+PEAK_TFLOPS = {"bfloat16": 989.0, "tf32": 495.0, "float32": 67.0}
 # phase 7a: (label, F, G, mode, input planes [lo, hi) of a 7-plane buffer)
 DUF_CASES = [("first block", 64, 16, "thw", 0, 7), ("last SAME-T block", 384, 16, "thw", 0, 7),
              ("last VALID-T block", 432, 16, "hw", 2, 5), ("16L block", 128, 32, "thw", 0, 7)]
@@ -163,10 +178,12 @@ SOURCE = {
 }
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
+TF32_ENTRIES = ("pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
+                "wgrad_tf32_mma_kernel")  # the float32 entries of kernels 5 and 6: 3xTF32
 TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_mma_kernel", "pfrb_a_bf16_mma_kernel",
                        "pfrb_b_bf16_mma_kernel", "pfnl_tail_bf16_mma_kernel",
                        "duf_block_pointwise_bf16_mma_kernel", "duf_block_conv_bf16_mma_kernel",
-                       "duf_dense_bf16_mma_kernel")
+                       "duf_dense_bf16_mma_kernel") + TF32_ENTRIES
 # phases 3 and 7a: equal over two launches (7a holds kernel 10 so as well)
 BITWISE_KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "duf_block")
 
@@ -231,6 +248,25 @@ def phase_build():
         found = {k: n for k, n in counts.items() if want in k}
         if not found or not all(found.values()):
             fail(f"{want}: entries {found or 'missing'}; every one must hold HMMA instructions")
+    spills = ptxas_spills(_build.PTXAS_LOG)
+    spilled = {k: v for k, v in spills.items() if any(e in k for e in TF32_ENTRIES) and any(v)}
+    if spilled or not any(e in k for k in spills for e in TF32_ENTRIES):
+        fail(f"the 3xTF32 entries must build without spills: {spilled or 'missing'}")
+
+
+def ptxas_spills(log):
+    """{mangled kernel entry: (spill store bytes, spill load bytes)} from the
+    ptxas report."""
+    spills, entry = {}, None
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and entry is not None:
+                spills[entry] = (int(m.group(1)), int(m.group(2)))
+    return spills
 
 
 def hmma_counts(lib, tool):
@@ -552,9 +588,46 @@ def bwd_inputs(shape, dt, gen):
     return {"pfrb_bwd_b": (dz, i1, base, w2f, w2b), "pfrb_bwd_a": (dz, feat, g, w1)}
 
 
+def _conv_backward(dy, x, w):
+    """aten.convolution_backward of the SAME 3x3 conv x [B,H,W,Ci] -> dy
+    [B,H,W,Co] with the HWIO kernel w, channels-last views, all three
+    gradients; returns (dx [B,H,W,Ci], dW HWIO, db)."""
+    dx, dw, db = torch.ops.aten.convolution_backward(
+        dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, [w.shape[0]], [1, 1], [1, 1],
+        [1, 1], False, [0, 0], 1, [True, True, True])
+    return dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0), db
+
+
+def bwd_library(name, args):
+    """The PyTorch yardstick of kernel 5 or 6, float32: cuDNN's conv
+    backward (aten.convolution_backward, the port never calls it) for the
+    same convs.  K6: one call plus the add of g.  K5, a composite of two
+    calls: the frames (d_i1, dW2f, db2) and the base (d_base, dW2b) from
+    the frame sum.  Returns a function giving the kernel's outputs."""
+    n, t, h, w, c = args[0].shape
+    oihw = lambda k: k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    if name == "pfrb_bwd_a":
+        dz1, feat, g, w1 = args
+        dz4, x4, k = dz1.reshape(n * t, h, w, c), feat.reshape(n * t, h, w, c), oihw(w1)
+
+        def run():
+            dx, dw, db = _conv_backward(dz4, x4, k)
+            return g + dx.reshape(n, t, h, w, c), dw, db
+        return run
+    dz2, i1, base, w2f, w2b = args
+    dz4, x4, kf, kb = dz2.reshape(n * t, h, w, c), i1.reshape(n * t, h, w, c), oihw(w2f), oihw(w2b)
+
+    def run():
+        d_i1, dw2f, db2 = _conv_backward(dz4, x4, kf)
+        d_base, dw2b, _ = _conv_backward(dz2.sum(1), base, kb)
+        return d_i1.reshape(n, t, h, w, c), d_base, dw2f, dw2b, db2
+    return run
+
+
 def phase_bwd_kernels(card):
     """5a: kernels 5 and 6 against their plain versions, bitwise weight
-    gradients over two launches, and their times beside the plain ones."""
+    gradients over two launches, and their times beside the plain ones,
+    cuDNN's conv backward (float32) and the bounds."""
     from pfnl_tpu_torch.ops.cuda.pfrb_bwd import pfrb_bwd_a, pfrb_bwd_b
     from pfnl_tpu_torch.ops.pfrb_ref import pfrb_bwd_a_ref, pfrb_bwd_b_ref
 
@@ -591,15 +664,34 @@ def phase_bwd_kernels(card):
                 k2 = cuda_time_ms(lambda: kernel(*args))
                 p2 = cuda_time_ms(lambda: plain(*args))
                 ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-                f = flop[name]
-                bound_ms, bound_by = bound(f, nbytes(args, got), key)
+                f, nbyte = flop[name], nbytes(args, got)
+                library_ms, lib_note = None, ""
+                if dt == torch.float32:
+                    # float32 runs 3xTF32 on the tensor cores: three TF32 products a float32 one
+                    bound_ms, bound_by = bound(3 * f, nbyte, "tf32")
+                    cores_ms = bound(f, nbyte, "float32")[0]
+                    bound_note = (f"bound {bound_ms:.3f} ms 3xTF32 ({bound_by}), {cores_ms:.3f} "
+                                  f"ms float32 CUDA cores; {3 * f / ms / 1e9:.2f} TFLOP/s of "
+                                  f"TF32 issue")
+                    lib = bwd_library(name, args)
+                    lib_err = max(_max_errs(a, b)[1] for a, b in zip(lib(), ref))
+                    library_ms = (cuda_time_ms(lib) + cuda_time_ms(lib)) / 2
+                    calls = "a composite of two calls and the frame sum" if name == "pfrb_bwd_b" \
+                        else "one call and the add of g"
+                    lib_note = (f", cuDNN convolution_backward ({calls}) {library_ms:.3f} ms "
+                                f"(max_rel_err {lib_err:.3e} vs plain, a note; kernel / library "
+                                f"{ms / library_ms:.3f})")
+                else:
+                    bound_ms, bound_by = bound(f, nbyte, key)
+                    bound_note = f"bound {bound_ms:.3f} ms ({bound_by})"
                 print(f"[5a time] {name} {key} {list(shape)}: kernel {ms:.3f} ms "
                       f"({f / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms "
-                      f"({f / plain_ms / 1e9:.2f} TFLOP/s); bound {bound_ms:.3f} ms "
-                      f"({bound_by}) on {card}", flush=True)
+                      f"({f / plain_ms / 1e9:.2f} TFLOP/s){lib_note}; {bound_note} on {card}",
+                      flush=True)
                 if shape == BWD_SHAPES[0] and dt == torch.float32:
                     results[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                                         bound_ms=bound_ms, bound_by=bound_by,
+                                         library_ms=library_ms)
     return results
 
 

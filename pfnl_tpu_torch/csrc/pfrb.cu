@@ -68,10 +68,9 @@
 // on CUDA cores through conv_tile.cuh.  One block per (sample, 8x16 pixel
 // tile), 256 threads; kernel A pushes the rounded i1 tile through shared
 // memory to feed the fusion product; kernel B computes the base conv once
-// into registers.  Tensor cores would mean TF32, which cannot hold the
-// 1e-4 float32 check against the plain version.
-#include <initializer_list>
-
+// into registers.  One TF32 product a float32 product cannot hold the 1e-4
+// float32 check against the plain version (about 3e-4); the 3xTF32 split of
+// kernels 5-6 (pfrb_bwd.cu) holds it at about 1e-6 and is the candidate.
 #include "conv_tile.cuh"
 #include "mma.cuh"
 
@@ -488,18 +487,11 @@ pfrb_b_bf16_mma_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ i
   }
 }
 
-// 16-byte aligned inputs and weights: every chunk goes by cp.async.
-inline bool aligned16(std::initializer_list<const void*> ptrs) {
-  uintptr_t bits = 0;
-  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
-  return (bits & 15) == 0;
-}
-
 int launch_a(const void* feat, const void* w1, const float* b1, const void* wfuse,
              const float* bfuse, void* i1, void* base, int n, int t, int h, int w,
              cudaStream_t stream) {
-  auto k = aligned16({feat, w1, wfuse}) ? &pfrb_a_bf16_mma_kernel<true>
-                                        : &pfrb_a_bf16_mma_kernel<false>;
+  auto k = pfnl::aligned16({feat, w1, wfuse}) ? &pfrb_a_bf16_mma_kernel<true>
+                                              : &pfrb_a_bf16_mma_kernel<false>;
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_A);
   const dim3 grid(((h + TH - 1) / TH) * ((w + TW - 1) / TW), n);
   k<<<grid, THREADS, SMEM_A, stream>>>(
@@ -512,8 +504,8 @@ int launch_a(const void* feat, const void* w1, const float* b1, const void* wfus
 int launch_b(const void* feat, const void* i1, const void* base, const void* w2f,
              const void* w2b, const float* b2, void* out, int n, int t, int h, int w,
              cudaStream_t stream) {
-  auto k = aligned16({feat, i1, base, w2f, w2b}) ? &pfrb_b_bf16_mma_kernel<true>
-                                                 : &pfrb_b_bf16_mma_kernel<false>;
+  auto k = pfnl::aligned16({feat, i1, base, w2f, w2b}) ? &pfrb_b_bf16_mma_kernel<true>
+                                                       : &pfrb_b_bf16_mma_kernel<false>;
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_B);
   const dim3 grid(((h + TH - 1) / TH) * ((w + TW - 1) / TW), n);
   k<<<grid, THREADS, SMEM_B, stream>>>(

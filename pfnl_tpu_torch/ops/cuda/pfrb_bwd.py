@@ -7,6 +7,9 @@ and `pfrb_bwd_a_ref` (ops/pfrb_ref.py).  Activations and their
 cotangents are contiguous [N,T,H,W,64] float32 or bfloat16; kernels are
 HWIO.  Data gradients come out in the activation dtype, weight and bias
 gradients in float32, summed in a fixed order (bitwise reproducible).
+The float32 entries run on the tensor cores as 3xTF32 (each float32
+product as three TF32 products of a hi + lo split); the bf16 entries run
+float FMAs on CUDA cores.
 """
 
 import torch
@@ -34,6 +37,15 @@ def _split(buf):
     return buf[:_KERNEL_ENTRIES].view(3, 3, c, c), buf[_KERNEL_ENTRIES:]
 
 
+def _conv_t_weight(w, dtype, device):
+    """The transposed conv's kernel as the entry for `dtype` reads it, rounded
+    to dtype and held as float32: [3,3,out,in] for the float32 (3xTF32)
+    entries, which is w flipped in space; HWIO mirror_t(w) for bf16."""
+    if dtype == torch.float32:
+        return _build.weight_f32(w.flip(0, 1), dtype, device)
+    return _build.weight_f32(mirror_t(w), dtype, device)
+
+
 def _check_kernel(name, w, c):
     if tuple(w.shape) != (3, 3, c, c):
         raise ValueError(f"{name}: conv kernels must be [3,3,{c},{c}], got {tuple(w.shape)}")
@@ -57,7 +69,7 @@ def pfrb_bwd_b(dz2, i1, base, w2f, w2b):
     _check_kernel("pfrb_bwd_b", w2b, c)
     dt, dev = dz2.dtype, dz2.device
     sfx = _build.suffix(dt)
-    w2ft, w2bt = (_build.weight_f32(mirror_t(p), dt, dev) for p in (w2f, w2b))
+    w2ft, w2bt = (_conv_t_weight(p, dt, dev) for p in (w2f, w2b))
     part, entries = _grad_buffers(dev)
     d_i1 = torch.empty_like(dz2)
     dzsum = torch.empty(n, h, w, c, dtype=dt, device=dev)
@@ -87,7 +99,7 @@ def pfrb_bwd_a(dz1, feat, g, w1):
     n, t, h, w, c = dz1.shape
     _check_kernel("pfrb_bwd_a", w1, c)
     dt, dev = dz1.dtype, dz1.device
-    w1t = _build.weight_f32(mirror_t(w1), dt, dev)
+    w1t = _conv_t_weight(w1, dt, dev)
     part, entries = _grad_buffers(dev)
     d_feat = torch.empty_like(dz1)
     gw1 = torch.empty(entries, dtype=torch.float32, device=dev)

@@ -177,10 +177,11 @@ def test_pfnl_tail_reads_only_its_input(gen, dtype, offset):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37)])
+@pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37), (16, 7, 32, 32)])
 def test_pfrb_bwd_kernels(gen, dtype, shape):
-    """Kernels 5 and 6 at ragged tiles; their weight gradients are bitwise
-    the same in a second run."""
+    """Kernels 5 and 6 at ragged tiles and at the training shape (batch 16,
+    LR 32x32); their weight gradients are bitwise the same in a second
+    run."""
     n, t, h, w = shape
     feat = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
     w1, b1, wfuse, bfuse, w2f, w2b, _ = _pfrb_params(gen, t)
@@ -194,6 +195,26 @@ def test_pfrb_bwd_kernels(gen, dtype, shape):
     again_b, again_a = pfrb_bwd_b(dz, i1, base, w2f, w2b), pfrb_bwd_a(dz, feat, g, w1)
     for a, b in zip(got_b[2:] + got_a[1:], again_b[2:] + again_a[1:]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [8, 1])
+def test_pfrb_bwd_kernels_read_only_their_inputs(gen, dtype, offset):
+    """Kernels 5 and 6 with every activation and cotangent a view into a
+    NaN-filled allocation, 16-byte aligned (offset 8) or not (offset 1, the
+    element-wise staging): halo pixels outside the image are never read,
+    and the outputs are finite and right."""
+    n, t, h, w = 1, 7, 21, 45
+    feat = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
+    w1, b1, wfuse, bfuse, w2f, w2b, _ = _pfrb_params(gen, t)
+    i1, base = pfrb_a_ref(feat, w1, b1, wfuse, bfuse)
+    dz = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
+    g = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
+    got_b = pfrb_bwd_b(*(_nan_view(x, offset) for x in (dz, i1, base)), w2f, w2b)
+    got_a = pfrb_bwd_a(*(_nan_view(x, offset) for x in (dz, feat, g)), w1)
+    assert all(torch.isfinite(x).all() for x in got_b + got_a)
+    _assert_close(got_b, pfrb_bwd_b_ref(dz, i1, base, w2f, w2b), dtype)
+    _assert_close(got_a, pfrb_bwd_a_ref(dz, feat, g, w1), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -131,6 +131,49 @@ def test_bwd_b_rounds_the_frame_sum_to_the_activation_dtype(block_case):
     torch.testing.assert_close(dw2b, want, atol=1e-5, rtol=1e-5)
 
 
+def _tf32(x):
+    """float32 -> TF32 by cvt.rna's rule, as the float32 kernels round:
+    add 0x1000 to the bits, then clear the low 13."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tensor_core_gemm(a, b, split):
+    """a [M,K] @ b [K,N] with the operand arithmetic of kernels 5-6's float32
+    entries: k-steps of 8, each TF32 product of a step exact (float64) and
+    added to a float32 accumulator.  split: x = hi + lo, both TF32, and the
+    products lo*hi, hi*lo, hi*hi in that order (3xTF32); else one TF32
+    product hi*hi."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    pairs = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if split else [(a_hi, b_hi)]
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        for x, y in pairs:
+            prod = x[:, k:k + 8].astype(np.float64) @ y[k:k + 8].astype(np.float64)
+            acc = (acc + prod).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("m,k", [(128, 576), (576, 16384)],
+                         ids=["data_gradient", "weight_gradient"])
+def test_3xtf32_split_holds_the_float32_check(m, k):
+    """The GEMMs of kernels 5-6 (a data gradient: 128 pixels x 9 taps x 64
+    channels; a weight gradient: 576 (tap, channel) x 16,384 pixels), 64
+    output channels: the 3xTF32 split stays within 1e-5 of max|float64|,
+    while one TF32 product lands above the 1e-4 kernel check, which is why
+    the kernels split."""
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = (rng.standard_normal((k, 64)) * 0.05).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(want).max()
+    three = np.abs(_tensor_core_gemm(a, b, split=True) - want).max() / scale
+    one = np.abs(_tensor_core_gemm(a, b, split=False) - want).max() / scale
+    assert three <= 1e-5, three
+    assert one > 1e-4, one
+
+
 def _gradcheck_inputs(rng, shapes, scale=0.3):
     return [torch.from_numpy(rng.standard_normal(s) * scale).requires_grad_() for s in shapes]
 
