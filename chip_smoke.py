@@ -11,9 +11,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      ptxas register / shared-memory / spill report; the HMMA (tensor-core
      mma) instructions in each kernel entry's SASS (cuobjdump -sass),
      failing if a bf16 entry of kernel 1, 2, 3, 4, 9 or 10 has none (all
-     six run on the tensor cores in bf16), or if a float32 entry of kernel
+     six run on the tensor cores in bf16), if a float32 entry of kernel
      5 or 6 (3xTF32 on the tensor cores: HMMA.1688.F32.TF32) has none or
-     spills;
+     spills, or if an entry of kernel 7 or 8 (the splat tiles) spills;
   3. each kernel against its plain PyTorch version at the main path's
      shapes (PFNL 7 frames, LR 180x320, batch 2), in float32 (TF32 off on
      the plain side) and in bfloat16, with the tolerance stated, and the
@@ -21,9 +21,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      2, 3 and 4 bitwise equal over two launches, kernel 1's time over
      scaled_dot_product_attention's; then
      the two splat kernels, 7 and 8, at their callers' shapes (K7: VESPCN
-     [12,1,180,320] R=2, LTDVSR [20,1,180,320] R=1, FRVSR's HR grid
-     [4,3,720,1280] R=1; K8: DRVSR [12,180,320] x4 R=2), each bitwise
-     equal over two launches, with its achieved GB/s;
+     [12,1,180,320] R=2, LTDVSR [20,1,180,320] R=1, MCResNet
+     [20,1,180,320] R=2, FRVSR's HR grid [4,3,720,1280] R=1; K8: DRVSR
+     [12,180,320] x4 R=2), each bitwise equal over two launches, with its
+     achieved GB/s and its time over its bound, timed as every kernel here
+     (back to back, so a call's host time counts where it exceeds the
+     kernel's), and beside it the kernel's device time alone
+     (profile_splats.device_time_ms: a sleep kernel holds the stream while
+     the host enqueues the calls);
   4. end to end through Predictor.test_video_truth: full-width PFNL
      (mf 64, 20 PFRBs, 7 frames, bf16, seeded random weights) on a seeded
      24-frame 720x1280 clip degraded on the device to 180x320, frames kept
@@ -122,11 +127,6 @@ TRAIN_B, TRAIN_HW = 16, 32              # phase 5: the paper's batch and LR crop
 BWD_SHAPES = [(TRAIN_B, T, TRAIN_HW, TRAIN_HW), (B, T, H, W)]
 GRAD_TOL = 1e-3                         # ||g_kernels - g_plain|| / ||g_plain|| per parameter
 FIT_WARM, FIT_STEPS = 3, 22             # phase 5c: steps before / inside the timed window
-# phase 3, splats: (kernel, caller, (b, c, h, w) of the image, flow bound R)
-SPLAT_CASES = [("bounded_splat", "VESPCN", (12, 1, H, W), 2),
-               ("bounded_splat", "LTDVSR", (20, 1, H, W), 1),
-               ("bounded_splat", "FRVSR HR grid", (4, 3, 4 * H, 4 * W), 1),
-               ("spmc_splat", "DRVSR", (12, 1, H, W), 2)]
 # phase 6: family -> (the splat kernel its serving forward launches, whether its SR
 # adds bicubic(centre Y), which the splat never touches and which is most of |SR|)
 Y_FAMILIES = {"vespcn": ("bounded_splat", True), "drvsr": ("spmc_splat", True),
@@ -184,6 +184,8 @@ TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_mma_kernel", "pfrb_a_bf16_mma_kernel
                        "pfrb_b_bf16_mma_kernel", "pfnl_tail_bf16_mma_kernel",
                        "duf_block_pointwise_bf16_mma_kernel", "duf_block_conv_bf16_mma_kernel",
                        "duf_dense_bf16_mma_kernel") + TF32_ENTRIES
+# phase 2: the entries of kernels 7 and 8, whose shared-memory tiles must not spill
+SPLAT_ENTRIES = ("bounded_splat_kernel", "spmc_splat_kernel")
 # phases 3 and 7a: equal over two launches (7a holds kernel 10 so as well)
 BITWISE_KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "duf_block")
 
@@ -252,6 +254,10 @@ def phase_build():
     spilled = {k: v for k, v in spills.items() if any(e in k for e in TF32_ENTRIES) and any(v)}
     if spilled or not any(e in k for k in spills for e in TF32_ENTRIES):
         fail(f"the 3xTF32 entries must build without spills: {spilled or 'missing'}")
+    for want in SPLAT_ENTRIES:
+        found = {k: v for k, v in spills.items() if want in k}
+        if not found or any(any(v) for v in found.values()):
+            fail(f"{want}: entries {found or 'missing'} must build without spills")
 
 
 def ptxas_spills(log):
@@ -420,6 +426,7 @@ def phase_splat_kernels(card):
     callers' shapes, bitwise equal over two launches, and their bf16
     times beside the plain versions' with the bytes they move."""
     from pfnl_tpu_torch.ops.cuda.bounded_splat import bounded_splat
+    from pfnl_tpu_torch.ops.cuda.profile_splats import SPLAT_CASES, device_time_ms
     from pfnl_tpu_torch.ops.cuda.spmc_splat import spmc_splat
     from pfnl_tpu_torch.ops.warp import forward_warp_local_ref, forward_warp_local_spmc
 
@@ -459,7 +466,8 @@ def phase_splat_kernels(card):
         k1 = cuda_time_ms(lambda: kernel(im, uv, r))
         k2 = cuda_time_ms(lambda: kernel(im, uv, r))
         p2 = cuda_time_ms(lambda: plain(im, uv, r))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        d1, d2 = (device_time_ms(lambda: kernel(im, uv, r)) for _ in range(2))
+        ms, plain_ms, dev_ms = (k1 + k2) / 2, (p1 + p2) / 2, (d1 + d2) / 2
         gbs = nbyte / ms / 1e6
         # a multiply-add per bilinear tap and channel of every source pixel
         bound_ms, bound_by = bound(2.0 * 4 * b * h * w * c, nbyte, "float32")
@@ -467,7 +475,9 @@ def phase_splat_kernels(card):
               f"({k1:.4f}, {k2:.4f}; {nbyte / 1e6:.1f} MB, {gbs:.1f} GB/s, "
               f"{gbs / HBM_PEAK_GBS:.1%} of {HBM_PEAK_GBS:.0f} GB/s), plain {plain_ms:.3f} ms "
               f"({p1:.3f}, {p2:.3f}; {nbyte / plain_ms / 1e6:.1f} GB/s); bound {bound_ms:.4f} ms "
-              f"({bound_by}) on {card}", flush=True)
+              f"({bound_by}), kernel {ms / bound_ms:.1f}x the bound; the kernel's device time "
+              f"alone {dev_ms:.4f} ms ({d1:.4f}, {d2:.4f}; {nbyte / dev_ms / 1e6:.1f} GB/s, "
+              f"{dev_ms / bound_ms:.1f}x the bound), on {card}", flush=True)
         if name not in results:  # the first case of each kernel is the summary's
             results[name] = dict(max_abs_err=res["bfloat16"], max_abs_err_f32=res["float32"],
                                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,

@@ -11,88 +11,127 @@
 // s=4, R=2), and a tap outside the image is folded onto the border (the
 // reference's index clip).
 //
-// Design: a gather over LR cells.  The s x s HR pixels of LR cell (i, j)
-// are reached by the same (2R+1)^2 sources, cells [i-R, i+R] x [j-R, j+R],
-// so one thread per LR cell reads those sources once, recomputes their
-// taps in float32, and sums into s*s = 16 register accumulators in a
-// fixed order: no atomics, no phase canvases, the interleave and fold
-// inside the kernel, two launches bitwise equal.  Each term is
-// im * (wx * wy), rounded as the plain version rounds it.  The TPU's
-// split u/v planes and its precomputed mask scratch are not carried over.
+// Design: a scatter into a shared-memory tile (splat_tile.cuh).  A block
+// owns TH x TW LR cells, the 4TH x 4TW HR pixels they hold, and stages
+// with cp.async the image and flow of every source that can reach them:
+// the cells plus R on each side (a tap's HR offset reaches R LR cells
+// either way; a fold reaches the border only from sources that close).
+// Each source's taps (floor, the two HR target rows and columns, clamped
+// for the fold or dropped outside [-sR, sR+s-1], the term im * (wx*wy))
+// are computed once per block, by the one thread that adds them into a
+// float32 HR tile, in the plain version's tap order: four adds a source.
+// The sources go class by class, (i mod 2R+1, j mod 2R+1), a barrier
+// between classes: a source's taps span 2R+1 LR cells, so two sources of
+// one class never reach one HR pixel and no atomics are needed; every
+// output sums in one fixed order (class, then tap), so two launches are
+// bitwise equal.  The HR tile is rounded once to T and written with
+// 16-byte stores (8 bf16 HR pixels a store).  A gather is not taken: it
+// would spend about 100 compare-selects per HR pixel to place 0.25 terms
+// on average.  The TPU's split u/v planes and its precomputed mask
+// scratch are not carried over.
 //
-// Bound on the H100: the HR write.  At DRVSR's [12,180,320] it reads 4 MB
-// (float32 Y and flow) and writes 44 MB; each thread writes 4 rows of 4
-// consecutive values, so a warp's stores are full 128-byte lines.  The
-// arithmetic is 25 sources x 64 masked products per LR cell.
-#include "common.cuh"
+// Bound on the H100: the HR write.  At DRVSR's [12,180,320] bf16 it reads
+// 4.1 MB (Y and flow) and writes 22.1 MB, 84% of the bytes it moves.  What
+// sets its pace instead is the class schedule: each class is a chain of
+// dependent steps per source between two barriers and holds about 1/25 of
+// the block's sources at R=2, while the HR tile (64 bytes an LR cell)
+// bounds the cells in flight on an SM; a second tile would halve the
+// barriers but also the cells in flight, so the block keeps one (the
+// variants of `python -m pfnl_tpu_torch.ops.cuda.profile_splats
+// --variants` time that choice and the tile's shape beside these sources).
+#include "splat_tile.cuh"
 
 namespace {
 
 using pfnl::from_f32;
 using pfnl::to_f32;
+using namespace pfnl::splat;
 
-constexpr int S = 4, BX = 32, BY = 8;
+constexpr int S = 4, TH = 16, TW = 32, NT = 128;
+constexpr int HTH = S * TH, HTW = S * TW;  // the HR tile
+static_assert((TH + 2 * MAX_R) * (TW + 2 * MAX_R) < MAX_SOURCES, "for_each_class");
 
 template <typename T>
-__global__ void __launch_bounds__(BX * BY)
+struct Geometry {  // shared-memory layout of a block, from r alone
+  int sh, sw, pim, puv;
+  __host__ __device__ explicit Geometry(int r)
+      : sh(TH + 2 * r), sw(TW + 2 * r), pim(staged_pitch<T>(sw)), puv(staged_pitch<T>(sw * 2)) {}
+  __host__ __device__ size_t bytes() const {
+    return (size_t)HTH * HTW * sizeof(float) + (size_t)sh * (pim + puv) * sizeof(T);
+  }
+};
+
+template <typename T, bool ASYNC>
+__global__ void __launch_bounds__(NT)
 spmc_splat_kernel(const T* __restrict__ im, const T* __restrict__ uv, T* __restrict__ out,
                   int h, int w, int r) {
-  const int j = blockIdx.x * BX + threadIdx.x;
-  const int i = blockIdx.y * BY + threadIdx.y;
-  if (j >= w || i >= h) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Geometry<T> g(r);
+  float* acc = reinterpret_cast<float*>(smem);  // [HTH][HTW]
+  T* sim = reinterpret_cast<T*>(acc + HTH * HTW);
+  T* suv = sim + g.sh * g.pim;
   const int oh = h * S, ow = w * S;
-  const size_t img = (size_t)blockIdx.z * h * w;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;  // the tile's first LR cell
+  const int oy = y0 - r, ox = x0 - r;  // image coordinates of the region's first source
+  const int cx0 = max(ox, 0), ncol = min(ox + g.sw, w) - cx0;  // its in-image columns
+  const long long pix = (long long)gridDim.z * h * w;
+  const long long img = (long long)blockIdx.z * h;
+  auto src_run = [&](int li, int cc) {
+    const int gy = oy + li;
+    const bool in = gy >= 0 && gy < h;
+    return Run{in ? ((img + gy) * w + cx0) * cc : 0, in ? ncol * cc : 0};
+  };
+  stage_rows<T, ASYNC, NT>(sim, im, pix, g.sh, g.pim, [&](int li) { return src_run(li, 1); });
+  stage_rows<T, ASYNC, NT>(suv, uv, pix * 2, g.sh, g.puv, [&](int li) { return src_run(li, 2); });
+  pfnl::cp_async_commit();
+  zero_tile<NT>(acc, HTH * HTW);
+  pfnl::cp_async_wait<0>();
+  __syncthreads();
+
   const int dmin = -S * r, dmax = S * r + S - 1;  // window of a tap's HR offset
-  float acc[S][S] = {};
-  for (int ii = max(i - r, 0); ii <= min(i + r, h - 1); ++ii) {
-    for (int jj = max(j - r, 0); jj <= min(j + r, w - 1); ++jj) {
-      const size_t src = img + (size_t)ii * w + jj;
-      const float val = to_f32(im[src]);
-      const float xs = ((float)jj + to_f32(uv[2 * src])) * (float)S;
-      const float ys = ((float)ii + to_f32(uv[2 * src + 1])) * (float)S;
-      const float x0f = floorf(xs), y0f = floorf(ys);
-      const float wx[2] = {x0f + 1.0f - xs, xs - x0f};
-      const float wy[2] = {y0f + 1.0f - ys, ys - y0f};
-      const int dx0 = (int)x0f - S * jj, dy0 = (int)y0f - S * ii;
-      // phase row / column of this cell that tap k lands on, or -1
-      int prow[2], pcol[2];
+  for_each_class<NT, 1>(g.sh, g.sw, oy, ox, 2 * r + 1, [&](int li, int lj, int) {
+    const int gy = oy + li, gx = ox + lj;
+    if (gy < 0 || gy >= h || gx < 0 || gx >= w) return;
+    const unsigned lo = ((unsigned)blockIdx.z * h + gy) * (unsigned)w + cx0;  // the run's low bits
+    const T* s_uv = suv + li * g.puv + staged_shift<T>(lo * 2) + (gx - cx0) * 2;
+    const float v[1] = {to_f32(sim[li * g.pim + staged_shift<T>(lo) + gx - cx0])};
+    const float xs = ((float)gx + to_f32(s_uv[0])) * (float)S;
+    const float ys = ((float)gy + to_f32(s_uv[1])) * (float)S;
+    const float x0f = floorf(xs), y0f = floorf(ys);
+    const float wx[2] = {x0f + 1.0f - xs, xs - x0f};
+    const float wy[2] = {y0f + 1.0f - ys, ys - y0f};
+    const int dx0 = (int)x0f - S * gx, dy0 = (int)y0f - S * gy;
+    int row[2], col[2];  // HR tile row / column of each tap, or out of the tile
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int dy = dy0 + k, dx = dx0 + k;
-        prow[k] = (dy >= dmin && dy <= dmax) ? min(max(S * ii + dy, 0), oh - 1) - S * i : -1;
-        pcol[k] = (dx >= dmin && dx <= dmax) ? min(max(S * jj + dx, 0), ow - 1) - S * j : -1;
-      }
-      // taps in the plain version's order: (y0,x0) (y1,x0) (y0,x1) (y1,x1)
-#pragma unroll
-      for (int kx = 0; kx < 2; ++kx) {
-#pragma unroll
-        for (int ky = 0; ky < 2; ++ky) {
-          const float term = __fmul_rn(val, __fmul_rn(wx[kx], wy[ky]));
-#pragma unroll
-          for (int py = 0; py < S; ++py) {
-#pragma unroll
-            for (int px = 0; px < S; ++px)
-              if (prow[ky] == py && pcol[kx] == px) acc[py][px] = __fadd_rn(acc[py][px], term);
-          }
-        }
-      }
+    for (int k = 0; k < 2; ++k) {
+      const int dy = dy0 + k, dx = dx0 + k;
+      row[k] = dy >= dmin && dy <= dmax ? clampi(S * gy + dy, 0, oh - 1) - S * y0 : -1;
+      col[k] = dx >= dmin && dx <= dmax ? clampi(S * gx + dx, 0, ow - 1) - S * x0 : -1;
     }
-  }
-  T* dst = out + ((size_t)blockIdx.z * oh + (size_t)S * i) * ow + (size_t)S * j;
-#pragma unroll
-  for (int py = 0; py < S; ++py) {
-#pragma unroll
-    for (int px = 0; px < S; ++px) dst[(size_t)py * ow + px] = from_f32<T>(acc[py][px]);
-  }
+    add_taps<1>(acc, HTW, HTH, HTW, row, col, wx, wy, v);
+  });
+
+  const int nout = S * min(TW, w - x0);
+  store_rows<T, ASYNC, NT, 1>(out, acc, 0, HTW, min(HTH, oh - S * y0),
+                              staged_pitch<T>(HTW) / Chunk<T>::N, [&](int ty) {
+                                return Run{((long long)blockIdx.z * oh + S * y0 + ty) * ow +
+                                               S * x0,
+                                           nout};
+                              });
 }
 
 template <typename T>
 int launch_spmc_splat(const void* im, const void* uv, void* out, int b, int h, int w, int r,
                       cudaStream_t stream) {
-  if (r < 0 || b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((w + BX - 1) / BX, (h + BY - 1) / BY, b);
-  spmc_splat_kernel<T><<<grid, dim3(BX, BY), 0, stream>>>(
-      static_cast<const T*>(im), static_cast<const T*>(uv), static_cast<T*>(out), h, w, r);
+  if (r < 0 || r > MAX_R || b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
+  auto kernel = pfnl::aligned16({im, uv, out}) ? &spmc_splat_kernel<T, true>
+                                               : &spmc_splat_kernel<T, false>;
+  const size_t bytes = Geometry<T>(r).bytes();
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
+  kernel<<<grid, NT, bytes, stream>>>(static_cast<const T*>(im), static_cast<const T*>(uv),
+                                      static_cast<T*>(out), h, w, r);
   return (int)cudaGetLastError();
 }
 
@@ -100,7 +139,7 @@ int launch_spmc_splat(const void* im, const void* uv, void* out, int b, int h, i
 
 // C interface, loaded with ctypes.  im [b,h,w] (one channel), uv
 // [b,h,w,2] and out [b,4h,4w], all of one type (float or bf16),
-// contiguous; r = the flow bound R.
+// contiguous; r = the flow bound R, 0 <= r <= pfnl_splat_max_r().
 extern "C" {
 
 int pfnl_spmc_splat_f32(const void* im, const void* uv, void* out, int b, int h, int w, int r,

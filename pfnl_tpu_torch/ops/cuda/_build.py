@@ -17,6 +17,7 @@ port on machines without nvcc or a GPU.
 import collections
 import ctypes
 import fcntl
+import functools
 import glob
 import os
 import shutil
@@ -123,6 +124,13 @@ def constant(name: str) -> int:
     fn = getattr(_library(), name)
     fn.argtypes, fn.restype = [], ctypes.c_int
     return fn()
+
+
+@functools.cache
+def splat_max_disp() -> int:
+    """The largest flow bound kernels 7 and 8 take on the card: MAX_R of
+    csrc/splat_tile.cuh, which their tiles' halo is sized for."""
+    return constant("pfnl_splat_max_r")
 
 
 def call(name: str, *args):

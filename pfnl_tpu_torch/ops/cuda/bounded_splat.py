@@ -12,13 +12,14 @@ import torch
 from pfnl_tpu_torch.ops import warp
 from pfnl_tpu_torch.ops.cuda import _build
 
-MAX_CHANNELS = 4  # the kernel keeps one float accumulator per channel in registers
+MAX_CHANNELS = 4  # channels a pixel of the kernel's shared-memory tile holds
 
 
 def bounded_splat(im: torch.Tensor, uv: torch.Tensor, max_disp: int) -> torch.Tensor:
     """im [B,H,W,C], uv [B,H,W,2] with |uv| <= max_disp -> the splat
     [B,H,W,C] in im's dtype, border folded.  Taps outside the window of
-    the bound are dropped, as in the plain version."""
+    the bound are dropped, as in the plain version.  On a CUDA tensor
+    max_disp is at most _build.splat_max_disp(); the plain version takes any."""
     if im.device.type == "cpu":
         return warp.forward_warp_local_ref(im, uv, max_disp)
     _build.check_cuda_inputs("bounded_splat", im, uv)
@@ -30,9 +31,10 @@ def bounded_splat(im: torch.Tensor, uv: torch.Tensor, max_disp: int) -> torch.Te
         raise ValueError(f"bounded_splat: im must be [B,H,W,C] and uv [B,H,W,2], got "
                          f"{tuple(im.shape)} and {tuple(uv.shape)}")
     b, h, w, c = im.shape
-    if not 1 <= c <= MAX_CHANNELS or max_disp < 0 or min(b, h, w) < 1:
-        raise ValueError(f"bounded_splat: takes 1 <= C <= {MAX_CHANNELS} and max_disp >= 0, "
-                         f"got C={c}, max_disp={max_disp}")
+    bound = _build.splat_max_disp()
+    if not 1 <= c <= MAX_CHANNELS or not 0 <= max_disp <= bound or min(b, h, w) < 1:
+        raise ValueError(f"bounded_splat: takes 1 <= C <= {MAX_CHANNELS} and 0 <= max_disp <= "
+                         f"{bound}, got C={c}, max_disp={max_disp}")
     out = torch.empty_like(im)
     _build.call(f"pfnl_bounded_splat_{sfx}", im, uv, out, b, h, w, c, int(max_disp))
     _build.launches["bounded_splat"] += 1

@@ -11,12 +11,14 @@ import torch
 from pfnl_tpu_torch.ops import warp
 from pfnl_tpu_torch.ops.cuda import _build
 
-SCALE = 4  # the kernel's phase block is compiled for x4 (DRVSR's only scale)
+SCALE = 4  # the kernel's HR tile is compiled for x4 (DRVSR's only scale)
 
 
 def spmc_splat(im: torch.Tensor, uv: torch.Tensor, scale: int, max_disp: int) -> torch.Tensor:
     """im [B,H,W,1], uv [B,H,W,2] with |uv| <= max_disp -> the splat onto
-    the x`scale` grid, [B,sH,sW,1] in im's dtype, border folded."""
+    the x`scale` grid, [B,sH,sW,1] in im's dtype, border folded.  On a
+    CUDA tensor max_disp is at most _build.splat_max_disp(); the plain
+    version takes any."""
     if im.device.type == "cpu":
         return warp.forward_warp_local_spmc(im, uv, scale, max_disp)
     _build.check_cuda_inputs("spmc_splat", im, uv)
@@ -28,8 +30,9 @@ def spmc_splat(im: torch.Tensor, uv: torch.Tensor, scale: int, max_disp: int) ->
         raise ValueError(f"spmc_splat: im must be [B,H,W,1] and uv [B,H,W,2], got "
                          f"{tuple(im.shape)} and {tuple(uv.shape)}")
     b, h, w, _ = im.shape
-    if scale != SCALE or max_disp < 0 or min(b, h, w) < 1:
-        raise ValueError(f"spmc_splat: takes scale {SCALE} and max_disp >= 0, "
+    bound = _build.splat_max_disp()
+    if scale != SCALE or not 0 <= max_disp <= bound or min(b, h, w) < 1:
+        raise ValueError(f"spmc_splat: takes scale {SCALE} and 0 <= max_disp <= {bound}, "
                          f"got scale={scale}, max_disp={max_disp}")
     out = torch.empty((b, h * scale, w * scale, 1), dtype=im.dtype, device=im.device)
     _build.call(f"pfnl_spmc_splat_{sfx}", im, uv, out, b, h, w, int(max_disp))

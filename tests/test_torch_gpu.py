@@ -17,7 +17,7 @@ from pfnl_tpu_torch.infer.profile_serving import seeded_model
 from pfnl_tpu_torch.models import DRVSR, DUF, LTDVSR, MCResNet, VESPCN
 from pfnl_tpu_torch.models.blocks import NonLocalBlock
 from pfnl_tpu_torch.models.pfnl import PFNL
-from pfnl_tpu_torch.ops.cuda import launches, reset_launches
+from pfnl_tpu_torch.ops.cuda import _build, launches, reset_launches
 from pfnl_tpu_torch.ops.cuda.bounded_splat import bounded_splat
 from pfnl_tpu_torch.ops.cuda.duf_block import dense_block
 from pfnl_tpu_torch.ops.cuda.duf_dense import conv3x3x3, duf_dense
@@ -337,30 +337,83 @@ def _flows(gen, b, h, w, r):
     return uv
 
 
+# the output tiles of kernels 7 (pixels) and 8 (LR cells), rows x columns
+K7_TILE, K8_TILE = (16, 64), (16, 32)
+
+
+def _tile_edge_flows(gen, b, h, w, r, tile):
+    """_flows, plus flows at the bound across every tile boundary (the
+    last row / column of a tile moved forward, the first moved back) and
+    out of all four corners, so that taps and folds cross tiles."""
+    uv = _flows(gen, b, h, w, r)
+    th, tw = tile
+    for y in range(th, h, th):
+        uv[:, y - 1, :, 1], uv[:, y, :, 1] = r, -r
+    for x in range(tw, w, tw):
+        uv[:, :, x - 1, 0], uv[:, :, x, 0] = r, -r
+    for y, x, sy, sx in ((0, 0, -1, -1), (0, -1, -1, 1), (-1, 0, 1, -1), (-1, -1, 1, 1)):
+        uv[:, y, x] = torch.tensor([sx * r, sy * r], dtype=uv.dtype)
+    return uv
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape,r", [((3, 1, 37, 45), 2), ((2, 3, 20, 70), 1), ((1, 4, 9, 5), 2)])
+@pytest.mark.parametrize("shape,r", [((3, 1, 37, 45), 2), ((2, 3, 20, 70), 1), ((1, 4, 9, 5), 2),
+                                     ((2, 1, 15, 63), 2), ((2, 1, 17, 65), 2),
+                                     ((1, 1, 31, 127), 1), ((1, 1, 33, 129), 1),
+                                     ((1, 1, 3, 2), 2), ((2, 2, 2, 3), 4),
+                                     ((1, 2, 17, 65), 1), ((1, 3, 33, 129), 1),
+                                     ((2, 3, 20, 70), 0), ((1, 1, 15, 63), 0),
+                                     ((1, 4, 19, 70), 4)])
 def test_bounded_splat_kernel(gen, dtype, shape, r):
-    """Kernel 7 against its plain version at ragged tiles; bitwise equal
-    over two launches."""
+    """Kernel 7 against its plain version at ragged tiles (one below and
+    one above a tile multiple, an image smaller than the halo, C 1-4, R
+    0-4), flows at the bound across tile boundaries and out of the
+    corners; bitwise equal over two launches."""
     b, c, h, w = shape
     im = torch.rand((b, h, w, c), generator=gen, device="cuda").to(dtype)
-    uv = _flows(gen, b, h, w, r).to(dtype)
+    uv = _tile_edge_flows(gen, b, h, w, max(r, 1), K7_TILE).to(dtype)
     got = bounded_splat(im, uv, r)
     _assert_close(got, forward_warp_local_ref(im, uv, r), dtype)
     assert torch.equal(got, bounded_splat(im, uv, r))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(3, 20, 37), (1, 7, 5)])
-def test_spmc_splat_kernel(gen, dtype, shape):
-    """Kernel 8 against its plain version at ragged tiles; bitwise equal
-    over two launches."""
+@pytest.mark.parametrize("shape,r", [((3, 20, 37), 2), ((1, 7, 5), 2),
+                                     ((2, 15, 31), 2), ((2, 17, 33), 2), ((1, 31, 63), 1),
+                                     ((1, 33, 65), 1), ((1, 2, 3), 2), ((2, 3, 2), 4),
+                                     ((2, 17, 33), 0), ((1, 20, 40), 4)])
+def test_spmc_splat_kernel(gen, dtype, shape, r):
+    """Kernel 8 against its plain version at ragged tiles (one below and
+    one above a tile multiple, an image smaller than the halo, R 0-4),
+    flows at the bound across tile boundaries and out of the corners;
+    bitwise equal over two launches."""
     b, h, w = shape
     im = torch.rand((b, h, w, 1), generator=gen, device="cuda").to(dtype)
-    uv = _flows(gen, b, h, w, 2).to(dtype)
-    got = spmc_splat(im, uv, 4, 2)
-    _assert_close(got, forward_warp_local_spmc(im, uv, 4, 2), dtype)
-    assert torch.equal(got, spmc_splat(im, uv, 4, 2))
+    uv = _tile_edge_flows(gen, b, h, w, max(r, 1), K8_TILE).to(dtype)
+    got = spmc_splat(im, uv, 4, r)
+    _assert_close(got, forward_warp_local_spmc(im, uv, 4, r), dtype)
+    assert torch.equal(got, spmc_splat(im, uv, 4, r))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [8, 1])
+def test_splat_kernels_read_only_their_inputs(gen, dtype, offset):
+    """im and uv as views into NaN-filled allocations, 16-byte aligned
+    (offset 8, cp.async staging) or not (offset 1, element-wise staging):
+    halo sources outside the image are never read, and the output is
+    right."""
+    for (b, c, h, w), r in (((2, 3, 17, 65), 1), ((1, 1, 15, 63), 2)):
+        im = torch.rand((b, h, w, c), generator=gen, device="cuda").to(dtype)
+        uv = _tile_edge_flows(gen, b, h, w, r, K7_TILE).to(dtype)
+        got = bounded_splat(_nan_view(im, offset), _nan_view(uv, offset), r)
+        assert torch.isfinite(got).all()
+        _assert_close(got, forward_warp_local_ref(im, uv, r), dtype)
+    for (b, h, w), r in (((2, 17, 33), 2), ((1, 15, 31), 1)):
+        im = torch.rand((b, h, w, 1), generator=gen, device="cuda").to(dtype)
+        uv = _tile_edge_flows(gen, b, h, w, r, K8_TILE).to(dtype)
+        got = spmc_splat(_nan_view(im, offset), _nan_view(uv, offset), 4, r)
+        assert torch.isfinite(got).all()
+        _assert_close(got, forward_warp_local_spmc(im, uv, 4, r), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -402,6 +455,12 @@ def test_splat_wrappers_reject_what_the_kernels_do_not_take(gen):
         spmc_splat(im, uv, 2, 2)                               # scale other than 4
     with pytest.raises(RuntimeError, match="autograd"):
         spmc_splat(im.clone().requires_grad_(), uv, 4, 2)
+    bound = _build.splat_max_disp()
+    assert bound >= 4                                          # the halo holds R up to 4
+    with pytest.raises(ValueError):
+        bounded_splat(im, uv, bound + 1)                       # R beyond the tile's halo
+    with pytest.raises(ValueError):
+        spmc_splat(im, uv, 4, bound + 1)
 
 
 def _duf_block_params(gen, f, g, mode):
