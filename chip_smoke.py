@@ -22,8 +22,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      scaled_dot_product_attention's; then
      the two splat kernels, 7 and 8, at their callers' shapes (K7: VESPCN
      [12,1,180,320] R=2, LTDVSR [20,1,180,320] R=1, MCResNet
-     [20,1,180,320] R=2, FRVSR's HR grid [4,3,720,1280] R=1; K8: DRVSR
-     [12,180,320] x4 R=2), each bitwise equal over two launches, with its
+     [20,1,180,320] R=2, FRVSR's HR grid [4,3,720,1280] R=1 and its
+     serving step [1,3,720,1280] R=1; K8: DRVSR [12,180,320] x4 R=2), each
+     in float32 and bfloat16 within TOL, bitwise equal over two launches,
+     with its
      achieved GB/s and its time over its bound, timed as every kernel here
      (back to back, so a call's host time counts where it exceeds the
      kernel's), and beside it the kernel's device time alone
@@ -90,12 +92,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
         frames/s beside the forward's alone, and peak memory;
      c. the same window with conv3d_impl="pallas": kernel 10 launched 24
         times, kernel 9 none, against the float32 plain path.
+  8. FRVSR streaming serving at full width (mf 128, 10 residual blocks,
+     bf16, seeded random weights): Predictor.test_video_lr over the clip
+     degraded to 180x320, frame by frame with the state on the card.
+     Checks the 24 output frames, kernel 7's 23 launches (once a frame
+     after the first, at the HR grid) and no other kernel, and at every
+     frame, teacher-forced, the bf16 and float32 kernel paths' step
+     against the float32 plain path's; prints the free-running drift, the
+     forward alone ms a frame (CUDA events around back-to-back steps),
+     delivered HR frames/s (and again for a second video), the device's
+     busy share (torch.profiler), the host's time to enqueue a step beside
+     the device's and its costliest operators, and peak memory.
 
 The second-to-last line is a JSON summary of the kernels: launches from
-the path that runs each (phase 4 plus 5c for kernels 1-6, 6 for 7 and 8,
-7b for 9, 7c for 10); errors and times at the shape named in TIMED (bf16
-but for kernels 5 and 6, float32 at the training shape); `bound_ms`, the
-least time the card could take for the same work (the larger of the
+the path that runs each (phase 4 plus 5c for kernels 1-6, 6 and 8 for
+7, 6 for 8, 7b for 9, 7c for 10); errors and times at the shape named in
+TIMED (bf16 but for kernels 5 and 6, float32 at the training shape);
+`bound_ms`, the least time the card could take for the same work (the larger of the
 bytes each call must move over 3.35 TB/s and its operations over the
 peak rate of their type, 989 TFLOP/s bf16 or 67 float32, NVIDIA's data
 sheet; kernels 5 and 6 in float32: three times their operations over 495
@@ -1123,6 +1136,143 @@ def phase_duf_pallas(card, model, x, ref):
     return serving
 
 
+def phase_frvsr_serving(smi, lr_frames, lrs):
+    """8: FRVSR (mf 128, 10 blocks, bf16) serves the degraded clip through
+    test_video_lr, frame by frame (Predictor._run_recurrent), kernel 7 at
+    the HR grid [1,720,1280,3] R=1 once a frame after the first.
+
+    The weights are seeded_model's (the init from SEED, biases N(0, 0.05^2)),
+    with no further seeding: the recurrence feeds its SR back, and at full
+    width its rms does not grow over the clip (held on the CPU at LR 32x48
+    by tests/test_torch_frvsr.py::test_seeded_recurrence_stays_bounded), so
+    the loop is bounded as drawn.  Printed here: the rms of the float32
+    plain recurrence's SR at every frame.
+
+    Gates, after the served run: K7 launched CLIP_FRAMES - 1 times and
+    nothing else (in a second video too); 24 uint8 720x1280 frames; at
+    every frame, teacher-forced (each path's step given the float32 plain
+    recurrence's previous SR),
+    the bf16 kernel path within E2E_TOL and the float32 kernel path within
+    TOL["float32"] of the float32 plain path's step, relative L2.  The
+    bf16 path's own recurrence against the plain one (the free-running
+    drift) is printed, not gated."""
+    from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.models import FRVSR
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from torch.profiler import ProfilerActivity, profile
+
+    hr_h, hr_w = H * 4, W * 4
+    model = seeded_model("frvsr", torch.bfloat16, SEED)
+    mem = MemoryFrames(lr_frames)
+    pred = Predictor(model, source=mem, sink=mem)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    frame_s = pred.test_video_lr("clip", name="sr")
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in KERNELS}
+    want["bounded_splat"] = CLIP_FRAMES - 1
+    print(f"[8 frvsr] launches over {CLIP_FRAMES} frames: "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if counts != want:
+        fail(f"frvsr: launch counts {counts} != {want}")
+    outs = mem.list("clip/sr")
+    if len(outs) != CLIP_FRAMES:
+        fail(f"frvsr: {len(outs)} SR frames written, want {CLIP_FRAMES}")
+    for path in outs:
+        img = mem.read(path)
+        if img.shape != (hr_h, hr_w, 3) or img.dtype != np.uint8:
+            fail(f"frvsr {path}: {img.shape} {img.dtype}, want ({hr_h}, {hr_w}, 3) uint8")
+    fps = (CLIP_FRAMES - 1) / float(np.sum(frame_s[1:]))
+    print(f"[8 frvsr] FRVSR mf {model.mf}, {model.num_blocks} blocks, bf16: {CLIP_FRAMES} HR frames "
+          f"{hr_h}x{hr_w} in {wall:.2f} s wall (frame 0 {frame_s[0]:.3f} s, then "
+          f"{', '.join(f'{t:.3f}' for t in frame_s[1:])} s); delivered {fps:.2f} HR frames/s "
+          f"after frame 0; peak memory {peak / 2**30:.2f} GiB on {smi}", flush=True)
+    # frame 0 runs the trunk alone, so the recurrent step's first-time costs (cuDNN plans of
+    # the flow net's shapes, allocations) land in the first chunk; a second video finds them
+    reset_launches()
+    warm_s = pred.test_video_lr("clip", name="sr_again")
+    if {k: launches[k] for k in KERNELS} != want:
+        fail(f"frvsr, second video: launch counts {dict(launches)} != {want}")
+    fps_warm = (CLIP_FRAMES - 1) / float(np.sum(warm_s[1:]))
+    print(f"[8 frvsr] the same clip again: frame 0 {warm_s[0]:.3f} s, then "
+          f"{', '.join(f'{t:.3f}' for t in warm_s[1:])} s; delivered {fps_warm:.2f} HR frames/s "
+          f"after frame 0 on {smi}", flush=True)
+
+    x = torch.from_numpy(lrs).cuda()  # [F,h,w,3] float32
+    n = CLIP_FRAMES - 1
+
+    def steps(sr):
+        for t in range(1, CLIP_FRAMES):
+            sr = model.step(x[t:t + 1], x[t - 1:t], sr)
+        return sr
+
+    with torch.inference_mode():
+        sr0 = model.step(x[0:1])
+        steps(sr0)  # warm-up
+        fwd_ms = (cuda_time_ms(lambda: steps(sr0), 1) + cuda_time_ms(lambda: steps(sr0), 1)) / 2 / n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(sr0)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            steps(sr0)
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    # where the host's time of a step goes: the operators with the most self CPU time
+    host_ops = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:8]
+    print("[8 frvsr] host ops by self CPU time a frame (under the profiler): " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3 / n:.3f} ms ({e.count // n} calls)"
+        for e in host_ops), flush=True)
+    host_ms, done_ms = (t1 - t0) * 1e3 / n, (t2 - t0) * 1e3 / n
+    print(f"[8 frvsr] forward alone {fwd_ms:.3f} ms a frame ({1e3 / fwd_ms:.2f} HR frames/s; CUDA "
+          f"events around {n} back-to-back steps) beside delivered {fps:.2f} HR frames/s "
+          f"({fps * fwd_ms / 1e3:.1%} of the forward's rate); device busy {busy_ms:.3f} ms a "
+          f"frame ({busy_ms / fwd_ms:.1%} of the forward; torch.profiler kernel time); host: "
+          f"the steps return after {host_ms:.3f} ms a frame, the device is done after "
+          f"{done_ms:.3f} ms ({host_ms / done_ms:.1%}) on {smi}", flush=True)
+
+    ref_model = FRVSR(dtype=torch.float32).cuda().eval()
+    ref_model.load_state_dict(model.state_dict())
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    drift, rms = [], []
+    with torch.inference_mode():
+        ref = free = None
+        for t in range(CLIP_FRAMES):
+            prev = () if t == 0 else (x[t - 1:t], ref)
+            got = {"bfloat16": model.step(x[t:t + 1], *prev),
+                   "float32": ref_model.step(x[t:t + 1], *prev)}
+            free = model.step(x[t:t + 1], *(() if t == 0 else (x[t - 1:t], free)))
+            ref = ref_model.step(x[t:t + 1], *prev, plain=True)
+            if got["bfloat16"].shape != (1, hr_h, hr_w, 3) or not torch.isfinite(
+                    got["bfloat16"]).all():
+                fail(f"frvsr frame {t}: shape {tuple(got['bfloat16'].shape)} or non-finite SR")
+            for key in worst:
+                worst[key] = max(worst[key], _rel(got[key], ref))
+            drift.append(_rel(free, ref))
+            rms.append(ref.pow(2).mean().sqrt().item())
+    torch.cuda.synchronize()
+    print(f"[8 frvsr] teacher-forced steps vs the f32 plain path over {CLIP_FRAMES} frames: worst "
+          f"rel L2 bf16 kernels {worst['bfloat16']:.3e} (tolerance {E2E_TOL:.0e}), f32 kernels "
+          f"{worst['float32']:.3e} (tolerance {TOL['float32']:.0e}); free-running bf16 drift "
+          f"{', '.join(f'{d:.3e}' for d in drift)}; rms SR of the plain recurrence "
+          f"{', '.join(f'{r:.4f}' for r in rms)}", flush=True)
+    if worst["bfloat16"] > E2E_TOL or worst["float32"] > TOL["float32"]:
+        fail("frvsr: a kernel path's step disagrees with the f32 plain path's")
+    del model, ref_model, pred, x
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -1132,7 +1282,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    name, count, _ = phase_device()
+    name, count, smi = phase_device()
     phase_build()
     results = phase_kernels(name)
     results.update(phase_splat_kernels(name))
@@ -1145,13 +1295,17 @@ def main():
     results.update(phase_duf_kernels(name))
     duf_counts, duf_model, window, ref = phase_duf_serving(name, lr_frames, lrs)
     pallas_counts = phase_duf_pallas(name, duf_model, window, ref)
+    del duf_model, window, ref
+    torch.cuda.empty_cache()
+    frvsr_counts = phase_frvsr_serving(smi, lr_frames, lrs)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
     if leaked:
         fail(f"the port loaded JAX-side modules: {leaked[:5]}")
 
-    path_launches = {k: counts[k] + train_counts[k] + y_counts[k] for k in TPU_KERNEL}
+    path_launches = {k: counts[k] + train_counts[k] + y_counts[k] + frvsr_counts[k]
+                     for k in TPU_KERNEL}
     path_launches.update(duf_block=duf_counts["duf_block"], duf_dense=pallas_counts["duf_dense"])
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],
                     launches=path_launches[k], **{f: results[k][f] for f in (

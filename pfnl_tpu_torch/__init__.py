@@ -10,16 +10,20 @@ reference it is tested against, and mirrors its layout:
              merge tail and the two splats, and the chain under autograd
   ops/cuda/  wrappers of the hand-written CUDA kernels (sources in csrc/),
              built with nvcc on first use into build/
-  models/    PFNL and the Y-channel flow families (VESPCN, MCResNet,
-             LTDVSR, DRVSR) with their flow nets, as nn.Modules
-  utils/     the flax-params <-> state_dict weight bridge
-  data/      manifests, frame stores, the training input pipeline
+  models/    PFNL, the Y-channel flow families (VESPCN, MCResNet, LTDVSR,
+             DRVSR) with their flow nets, FRVSR and DUF, as nn.Modules
+  utils/     the flax-params <-> state_dict weight bridge, PNG I/O, the
+             TF1 checkpoint reader and the seven families' importers
+  data/      manifests, frame stores, the training input pipeline, the
+             blur{scale}/ renderer and filelists (prepare)
   train/     losses and the Trainer
-  eval/      periodic validation (PSNR)
-  infer/     the testvideos() inference API, PFNL and the Y families
+  eval/      periodic validation (PSNR), the MATLAB-equivalent Y-PSNR/SSIM
+             metrics and parity tables
+  infer/     the testvideos() inference API: window batches, and FRVSR's
+             frame-by-frame recurrence
 
-It imports torch and never jax, and loads nothing of `pfnl_tpu` (PNG
-frames go through `pfnl_tpu.utils.image_io`, jax-free, on first use).
+It imports torch and never jax, and loads nothing of `pfnl_tpu`: what it
+needs of a numpy-only module there, it carries as its own copy.
 Activations keep the JAX package's channels-last layouts ([N,T,H,W,C],
 [B,N,D]) at public functions, and conv kernels keep flax's HWIO layout, so
 the two packages compare like with like.

@@ -1,25 +1,31 @@
-"""Command line of the port — counterpart of `run.py test`, `run.py eval` and
-`run.py train`:
+"""Command line of the port — counterpart of `run.py test`, `eval`, `train`,
+`import-tf1`, `prepare` and `parity`:
 
-    python -m pfnl_tpu_torch test {pfnl,vespcn,mcresnet,ltdvsr,drvsr,duf} --data DIR
+    python -m pfnl_tpu_torch test {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr,duf} --data DIR
         [--save-dir D] [--weights params.npz] [--compute-dtype bfloat16]
-        [--device cuda] [--start 0] [--name NAME]
+        [--device cuda] [--start 0] [--name NAME] [--seed 0]
     python -m pfnl_tpu_torch eval pfnl [--save-dir D] [--eval-list F]
         [--compute-dtype float32|bfloat16] [--device cuda]
     python -m pfnl_tpu_torch train pfnl --train-list F [--eval-list F]
         [--steps N] [--in-size 32] [--batch-size 16] [--save-dir D]
         [--save-every 500] [--compute-dtype float32|bfloat16] [--no-eval]
         [--device cuda]
+    python -m pfnl_tpu_torch import-tf1 MODEL --ckpt PREFIX|FILE.h5 [--save-dir D]
+    python -m pfnl_tpu_torch prepare --root R [--scale 4] [--val-count 19]
+        [--overwrite] [--no-filelists] [--device cuda]
+    python -m pfnl_tpu_torch parity MODEL --data DIR [--name N] [--tables-only]
+        [and the options of `test`]
 
 `test` super-resolves every sequence of a dataset directory into
 `DIR/<seq>/<NAME>/*.png`: PFNL degrades `DIR/<seq>/truth/*.png` on the
-device, the Y-channel families (vespcn, mcresnet, ltdvsr, drvsr) and DUF
-(52 layers) read the pre-rendered `DIR/<seq>/blur4/*.png`, as the JAX
-package does.  Its weights, as JAX's `_restored_state`: the newest
-`ckpt_*.pt` that `train` wrote under `--save-dir` (the preset's
-`./checkpoint/<model>` by default); without one they stay random, drawn
-from `--seed`.  `--weights` takes precedence: a flat `.npz` of '/'-joined
-flax paths (for DUF with its BatchNorm state: `params/...` and
+device, the Y-channel families (vespcn, mcresnet, ltdvsr, drvsr), FRVSR
+(frame by frame, its state carried on the device) and DUF (52 layers)
+read the pre-rendered `DIR/<seq>/blur4/*.png`, as the JAX package does.
+Its weights, as JAX's `_restored_state`: the newest `ckpt_*.pt` under
+`--save-dir` (the preset's `./checkpoint/<model>` by default), which
+`train` or `import-tf1` wrote; without one they stay random, drawn from
+`--seed`.  `--weights` takes precedence: a flat `.npz` of '/'-joined flax
+paths (for DUF with its BatchNorm state: `params/...` and
 `batch_stats/...`).
 
 `eval` restores the same way and runs the Evaluator at the checkpoint's
@@ -30,6 +36,19 @@ Only PFNL trains in the port, so only PFNL evaluates.
 default: batch 16, LR crop 32, 7 frames, float32), saving checkpoints and
 the eval log (`pfnl.txt`) under `--save-dir`, and resuming from its newest
 checkpoint.
+
+`import-tf1` reads the authors' TF1 checkpoint (a `PREFIX` with its
+`.index` and `.data-*` files, no TensorFlow needed; for DUF also the
+original VSR-DUF `.h5` weights, which need h5py), loads it into the
+family's model (`load_state_dict(strict=True)`: a name or shape that does
+not fit fails, naming it) and writes `ckpt_000000000.pt` (step 0, the
+model alone) under `--save-dir`.
+
+`prepare` renders `blur{scale}/` beside every `truth/` under `--root` on
+the device and writes the train/val filelists there.  `parity` runs `test`
+into `DIR/<seq>/<NAME>/` (`<model>_parity` by default), then prints the
+MATLAB-equivalent Y-channel PSNR/SSIM table of those frames against
+`truth/` (`--tables-only`: the table alone).
 
 The device is `cuda` unless `--device` names another: a machine whose CUDA
 fails runs nothing rather than falling back to the CPU.
@@ -47,18 +66,24 @@ from pfnl_tpu_torch.models import MODEL_REGISTRY
 def _parser():
     p = argparse.ArgumentParser(prog="python -m pfnl_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def serving(q):
+        """The options of `test` that `parity` shares."""
+        q.add_argument("model", choices=sorted(MODEL_REGISTRY))
+        q.add_argument("--data", required=True,
+                       help="dataset dir: <seq>/truth/*.png (pfnl) or <seq>/blur4/*.png")
+        q.add_argument("--save-dir", default=None,
+                       help="restore its newest ckpt_*.pt (default: the preset's save_dir)")
+        q.add_argument("--weights", default=None,
+                       help="flat .npz of flax params (before --save-dir)")
+        q.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+        q.add_argument("--device", default="cuda")
+        q.add_argument("--name", default=None, help="output subdirectory")
+        q.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+
     t = sub.add_parser("test", help="super-resolve every sequence of a dataset dir")
-    t.add_argument("model", choices=sorted(MODEL_REGISTRY))
-    t.add_argument("--data", required=True,
-                   help="dataset dir: <seq>/truth/*.png (pfnl) or <seq>/blur4/*.png")
-    t.add_argument("--save-dir", default=None,
-                   help="restore its newest ckpt_*.pt (default: the preset's save_dir)")
-    t.add_argument("--weights", default=None, help="flat .npz of flax params (before --save-dir)")
-    t.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
-    t.add_argument("--device", default="cuda")
+    serving(t)
     t.add_argument("--start", type=int, default=0, help="first sequence index")
-    t.add_argument("--name", default=None, help="output subdirectory (default: model)")
-    t.add_argument("--seed", type=int, default=0, help="seed of the random weights")
 
     e = sub.add_parser("eval", help="evaluate the newest checkpoint of --save-dir")
     e.add_argument("model", choices=sorted(MODEL_REGISTRY))
@@ -79,13 +104,32 @@ def _parser():
     r.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"])
     r.add_argument("--no-eval", action="store_true")
     r.add_argument("--device", default="cuda")
+
+    m = sub.add_parser("import-tf1", help="convert a reference TF1 checkpoint to ckpt_*.pt")
+    m.add_argument("model", choices=sorted(MODEL_REGISTRY))
+    m.add_argument("--ckpt", required=True,
+                   help="TF1 checkpoint prefix (with .index/.data-* files), or DUF's .h5")
+    m.add_argument("--save-dir", default=None, help="default: the preset's save_dir")
+
+    q = sub.add_parser("prepare", help="render blur{scale}/ and write the filelists")
+    q.add_argument("--root", required=True)
+    q.add_argument("--scale", type=int, default=4)
+    q.add_argument("--val-count", type=int, default=19)
+    q.add_argument("--overwrite", action="store_true")
+    q.add_argument("--no-filelists", action="store_true")
+    q.add_argument("--device", default="cuda")
+
+    y = sub.add_parser("parity", help="test, then the Y-PSNR/SSIM table")
+    serving(y)
+    y.add_argument("--tables-only", action="store_true",
+                   help="skip inference, just recompute the table")
     return p
 
 
 # what the families other than PFNL wait for before they train, and so evaluate
 _NOT_TRAINED = {"duf": "the DUF training slice",
                 **{m: "the flow-family training slice" for m in ("vespcn", "mcresnet", "ltdvsr",
-                                                                 "drvsr")}}
+                                                                 "drvsr", "frvsr")}}
 
 
 def _restored_model(args, cfg, seed=0, weights=None):
@@ -125,6 +169,56 @@ def cmd_test(args):
     cfg = _config(args)
     model, _ = _restored_model(args, cfg, args.seed, args.weights)
     Predictor(model).testvideos(args.data, start=args.start, name=args.name or cfg.model)
+
+
+def cmd_import_tf1(args):
+    """run.py cmd_import_tf1 (:231-272): the family's model (float32, the
+    seed-0 init), its parameters replaced by the checkpoint's, saved at
+    step 0 with no optimizer state (training starts Adam fresh)."""
+    from pfnl_tpu_torch.train.trainer import save_checkpoint
+    from pfnl_tpu_torch.utils.tf1_imports import IMPORTERS, import_duf_hdf5
+    from pfnl_tpu_torch.utils.weights import from_flax, to_flax
+
+    cfg = _config(args)
+    importer, cfg_keys, has_stats = IMPORTERS[cfg.model]
+    model = MODEL_REGISTRY[cfg.model](num_frames=cfg.num_frames, scale=cfg.scale,
+                                      generator=torch.Generator().manual_seed(0))
+    if args.ckpt.endswith((".h5", ".hdf5")):
+        # the original VSR-DUF weights (reference utils.py:290-318)
+        if cfg.model != "duf":
+            raise SystemExit("hdf5 import is only defined for duf")
+        params, stats = import_duf_hdf5(*to_flax(model), args.ckpt)
+    else:
+        out = importer(args.ckpt, **{k: getattr(cfg, k) for k in cfg_keys})
+        params, stats = out if has_stats else (out, None)
+    try:
+        model.load_state_dict(from_flax(params, stats), strict=True)
+    except RuntimeError as e:
+        raise SystemExit(f"import-tf1 {cfg.model}: {args.ckpt} does not fit the model: {e}")
+    path = save_checkpoint(cfg.save_dir, {"step": 0, "model": model.state_dict()})
+    print(f"imported {args.ckpt} -> {path} (step 0)")
+
+
+def cmd_prepare(args):
+    """run.py cmd_prepare (:201-208)."""
+    from pfnl_tpu_torch.data.prepare import make_filelists, prepare_dataset
+
+    n = prepare_dataset(args.root, scale=args.scale, overwrite=args.overwrite, device=args.device)
+    print(f"rendered {n} LR frames")
+    if not args.no_filelists:
+        make_filelists(args.root, val_count=args.val_count)
+
+
+def cmd_parity(args):
+    """run.py cmd_parity (:211-220): `test` over a dataset dir into
+    <seq>/<name>/, then the MATLAB-equivalent Y-channel PSNR/SSIM table."""
+    from pfnl_tpu_torch.eval.tables import dataset_table
+
+    args.name = args.name or f"{args.model}_parity"
+    if not args.tables_only:
+        args.start = 0
+        cmd_test(args)
+    dataset_table(args.data, args.name)
 
 
 def cmd_eval(args):
@@ -176,7 +270,8 @@ def cmd_train(args):
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    {"test": cmd_test, "eval": cmd_eval, "train": cmd_train}[args.cmd](args)
+    {"test": cmd_test, "eval": cmd_eval, "train": cmd_train, "import-tf1": cmd_import_tf1,
+     "prepare": cmd_prepare, "parity": cmd_parity}[args.cmd](args)
 
 
 if __name__ == "__main__":

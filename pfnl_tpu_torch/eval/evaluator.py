@@ -22,6 +22,7 @@ import torch
 
 from pfnl_tpu_torch.data.frames import PngFrames
 from pfnl_tpu_torch.data.manifest import load_manifest
+from pfnl_tpu_torch.eval.metrics import psnr_from_mse
 from pfnl_tpu_torch.ops.degrade import downsample
 
 
@@ -82,7 +83,7 @@ class Evaluator:
         if not mse_acc:
             raise RuntimeError("no eval batches produced (dataset too small?)")
         mse_acc = np.concatenate(mse_acc, 0)
-        psnr_acc = 10 * np.log10(1.0 / mse_acc)
+        psnr_acc = psnr_from_mse(mse_acc)
         mse_avg = np.mean(mse_acc, axis=0)
         psnr_avg = np.mean(psnr_acc, axis=0)
         print_fn(f"Eval PSNR: {psnr_avg}, MSE: {mse_avg}")

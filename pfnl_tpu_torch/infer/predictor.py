@@ -9,11 +9,15 @@ reference's public surface:
     (model/vespcn.py:298).
   * testvideos(path, start, name, from_truth): every sequence of a dataset
     directory (model/pfnl.py:322-332); PFNL degrades `truth/`, the Y
-    families and DUF read `blur{scale}/`, unless from_truth says otherwise.
+    families, FRVSR and DUF read `blur{scale}/`, unless from_truth says
+    otherwise.
 
-Every family runs edge-clamped temporal windows in batches, its LR
-frames edge-padded to a multiple of the model's `lr_multiple` and its HR
-output cropped back.  What differs is read from the model:
+The window families run edge-clamped temporal windows in batches, their
+LR frames edge-padded to a multiple of the model's `lr_multiple` and
+their HR output cropped back; a recurrent model (FRVSR) runs `step` frame
+by frame, carrying its state on the device (`_run_recurrent`).  What
+differs is read from the model:
+  * recurrent: True (FRVSR) runs `_run_recurrent`, False the windows;
   * y_channel: False (PFNL, DUF) saves the model's RGB output as it comes; True
     (VESPCN, MCResNet, LTDVSR, DRVSR) serves through `serve_rgb`, which
     pairs the SR Y of the last output frame with the bicubically upscaled
@@ -34,7 +38,6 @@ import numpy as np
 import torch
 
 from pfnl_tpu_torch.data.frames import MemoryFrames, PngFrames  # noqa: F401  (public here too)
-from pfnl_tpu_torch.data.manifest import scan_dataset_dir
 from pfnl_tpu_torch.ops.color import rgb2ycbcr, ycbcr2rgb
 from pfnl_tpu_torch.ops.degrade import downsample_4d
 from pfnl_tpu_torch.ops.resize import resize_bicubic
@@ -82,9 +85,9 @@ def serve(model, clip: torch.Tensor, plain: bool = False) -> torch.Tensor:
 class Predictor:
     def __init__(self, model, batch_windows: int = 4, source=None, sink=None):
         """model: a window model of one family (PFNL, DUF: [N,T,h,w,3] ->
-        [N,1,Sh,Sw,3]; a Y family: a dict whose "sr" is [N,T',Sh,Sw,1])
-        with the serving attributes above, whose parameters sit on the
-        device to run on.  batch_windows: the
+        [N,1,Sh,Sw,3]; a Y family: a dict whose "sr" is [N,T',Sh,Sw,1]) or
+        a recurrent one (FRVSR: `step`), with the serving attributes above,
+        whose parameters sit on the device to run on.  batch_windows: the
         least number of windows per forward batch."""
         self.model = model
         self.num_frames = model.num_frames
@@ -215,15 +218,110 @@ class Predictor:
         print(f"spent {np.sum(all_time)} s in total and {avg} s in average")
         return all_time
 
+    def _run_recurrent(self, lrs: np.ndarray, save_path: str, chunk_frames: int = 32):
+        """The O(1)-state recurrence of a recurrent model (pfnl_tpu
+        `_run_recurrent`): frame 0 through `step(x)` alone, the warm-up in
+        all_time[0]; then chunks of `chunk_frames` frames, each frame through
+        `step(x, xp, est)`.  The state (the previous LR frame, the previous
+        SR exactly as `step` returned it, in the compute dtype: not clipped,
+        not rounded to uint8, not widened) stays on the device across
+        chunks.  Each SR frame goes to uint8 on the device.
+
+        On CUDA a chunk uploads its LR frames (and the one before) from a
+        pinned buffer, and its uint8 frames come down into a pinned buffer,
+        two of each, made during the warm-up and used in turn; chunk i is
+        enqueued before chunk i-1 is written out, which waits on chunk
+        i-1's CUDA event only, so the host does not wait on the device
+        inside a chunk.  No chunk is
+        padded (there is no compile to spare), so the frames do not depend
+        on chunk_frames.  The average is per frame, over frames 1..F-1
+        (the reference's per-frame print, model/frvsr.py:301)."""
+        if chunk_frames < 1:
+            raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
+        print(f"Save at {save_path}")
+        print(f"{lrs.shape[0]} Inputs With Shape {lrs.shape[1:]}")
+        f = lrs.shape[0]
+        if f == 0:
+            return np.array([])
+        cuda = self.device.type == "cuda"
+        kc = min(chunk_frames, max(f - 1, 1))
+        st = time.time()
+        with torch.inference_mode():
+            sr = self.model.step(torch.from_numpy(lrs[0:1]).to(self.device))
+            first = to_uint8(sr[0])
+        pinned_in, pinned_out = [], []  # chunk i uses [i % 2]
+        if cuda:  # pinning host memory is slow: part of the warm-up
+            for _ in range(2):
+                pinned_in.append(torch.empty((kc + 1,) + lrs.shape[1:], dtype=torch.float32,
+                                             pin_memory=True))
+                pinned_out.append(torch.empty((kc,) + first.shape, dtype=torch.uint8,
+                                              pin_memory=True))
+        self.sink.write(os.path.join(save_path, "0000.png"), first.cpu().numpy())
+        all_time = [time.time() - st]
+
+        def dispatch(i, lo, k, sr):
+            """Frames [lo, lo+k) through `step` from state sr, enqueued;
+            returns (host uint8 [k,H,W,3], its CUDA event or None, the last SR)."""
+            with torch.inference_mode():
+                if cuda:
+                    # chunk i-2's upload from this buffer and its frames in pinned_out[i % 2]
+                    # preceded its event, which flush(i-2) waited on
+                    buf, host = pinned_in[i % 2], pinned_out[i % 2]
+                    np.copyto(buf.numpy()[:k + 1], lrs[lo - 1:lo + k])
+                    frames = buf[:k + 1].to(self.device, non_blocking=True)
+                else:
+                    frames = torch.from_numpy(lrs[lo - 1:lo + k])
+                    host = torch.empty((k,) + first.shape, dtype=torch.uint8)
+                for j in range(k):
+                    sr = self.model.step(frames[j + 1:j + 2], frames[j:j + 1], sr)
+                    host[j].copy_(to_uint8(sr[0]), non_blocking=cuda)
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
+            return host, done, sr
+
+        def flush(host, done, k, base):
+            if done is not None:
+                done.synchronize()
+            frames = host.numpy()
+            for j in range(k):  # a copy: the pinned buffer is reused two chunks on
+                self.sink.write(os.path.join(save_path, f"{base + j:0>4}.png"), frames[j].copy())
+
+        pending = None  # (host uint8, event, frames, first frame index)
+        i, lo = 0, 1
+        while lo < f:
+            k = min(kc, f - lo)
+            st = time.time()
+            host, done, sr = dispatch(i, lo, k, sr)
+            if pending is not None:
+                flush(*pending)
+            pending = (host, done, k, lo)
+            all_time.append(time.time() - st)
+            i, lo = i + 1, lo + k
+        if pending is not None:
+            st = time.time()
+            flush(*pending)
+            all_time[-1] += time.time() - st
+        all_time = np.array(all_time)
+        avg = np.sum(all_time[1:]) / (f - 1) if f > 1 else float(all_time[0])
+        print(f"spent {np.sum(all_time)} s in total and {avg} s in average")
+        return all_time
+
+    def _run(self, lrs: np.ndarray, save_path: str, part: int):
+        if self.model.recurrent:
+            return self._run_recurrent(lrs, save_path)
+        return self._run_windows(lrs, save_path, part)
+
     def test_video_truth(self, path: str, name: str = "result", part: int = 1000):
         """Degrade truth/*.png on the device, then super-resolve."""
         lrs = self._degrade_video(self._read_video(os.path.join(path, "truth")))
-        return self._run_windows(lrs, os.path.join(path, name), part)
+        return self._run(lrs, os.path.join(path, name), part)
 
     def test_video_lr(self, path: str, name: str = "result", part: int = 1000):
         """Super-resolve pre-rendered blur{scale}/*.png."""
         lrs = self._read_video(os.path.join(path, f"blur{self.scale}"))
-        return self._run_windows(lrs, os.path.join(path, name), part)
+        return self._run(lrs, os.path.join(path, name), part)
 
     def testvideo(self, path: str, name: str = "result", part: int = 1000):
         """The VESPCN family's name for test_video_lr (model/vespcn.py:298)."""
@@ -233,9 +331,10 @@ class Predictor:
                    from_truth: bool = None):
         """Every sequence subdirectory from index `start` on.  from_truth
         defaults to the model's reads_truth, the JAX package's behaviour:
-        PFNL degrades truth/, the Y families and DUF read blur{scale}/."""
+        PFNL degrades truth/, the Y families, FRVSR and DUF read
+        blur{scale}/."""
         if from_truth is None:
             from_truth = self.model.reads_truth
         run = self.test_video_truth if from_truth else self.test_video_lr
-        for k in scan_dataset_dir(path)[start:]:
+        for k in self.source.sequences(path)[start:]:
             run(k, name=name)

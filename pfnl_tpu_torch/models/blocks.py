@@ -33,13 +33,23 @@ def conv_glorot(shape, generator=None) -> torch.Tensor:
     return glorot_uniform(shape, kh * kw * cin, kh * kw * cout, generator)
 
 
+def conv_lecun(shape, generator=None) -> torch.Tensor:
+    """flax's lecun_normal (nn.Conv's default) for a conv kernel: a normal
+    of std sqrt(1 / fan_in) / 0.8796 truncated at two std, fan_in = every
+    axis but the last."""
+    std = math.sqrt(1.0 / math.prod(shape[:-1])) / 0.87962566103423978
+    return nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
 class ConvParams(nn.Module):
     """A conv's `kernel` (HWIO) and zero-initialised `bias`, executed by
-    the caller (flax ConvParams / nn.Conv parameter tree)."""
+    the caller (flax ConvParams / nn.Conv parameter tree).  init: the
+    kernel's random init, glorot_uniform (the JAX package's) by default."""
 
-    def __init__(self, kshape, generator=None):
+    def __init__(self, kshape, generator=None, init=conv_glorot):
         super().__init__()
-        self.kernel = nn.Parameter(conv_glorot(tuple(kshape), generator))
+        self.kernel = nn.Parameter(init(tuple(kshape), generator))
         self.bias = nn.Parameter(torch.zeros(kshape[-1]))
 
 

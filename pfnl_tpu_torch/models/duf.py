@@ -198,6 +198,7 @@ class DUF(nn.Module):
     y_channel = False
     lr_multiple = 2
     reads_truth = False
+    recurrent = False
 
     def __init__(self, num_frames: int = 7, scale: int = 4, layers: int = 52,
                  conv3d_impl: str = "auto", dtype: torch.dtype = torch.float32,

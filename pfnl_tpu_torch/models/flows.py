@@ -6,10 +6,12 @@ same functions).
             VESPCN, MCResNet and DRVSR (reference
             modules/model_easyflow.py:64-106); |flow| < 2
   LTDFlow   LTDVSR's pooled flow net (model/ltdvsr.py:136-149); |flow| < 1
+  FRVSRFlow FRVSR's 3-level conv U-net (model/frvsr.py:68-96); |flow| < 1
 
-Both take a pair of [N,h,w,C] images and return flow [N,h,w,2] (x = col,
+Each takes a pair of [N,h,w,C] images and returns flow [N,h,w,2] (x = col,
 y = row) in the compute dtype.  Parameter names are flax's
-(`c1..c5, s1..s5`; `conv0..conv2`).  `y_and_pairs` and `splat` are the
+(`c1..c5, s1..s5`; `conv0..conv2`; `conv0_{p}_{q}, conv1_{p}_{q}, conv2,
+conv3`).  `y_and_pairs` and `splat` are the
 Y families' shared head and motion compensation.
 """
 
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pfnl_tpu_torch.models.blocks import Conv
+from pfnl_tpu_torch.models.blocks import Conv, leaky_relu
 from pfnl_tpu_torch.ops.color import rgb2y
 from pfnl_tpu_torch.ops.resize import resize_bilinear
 from pfnl_tpu_torch.ops.warp import (backward_warp_local, forward_warp_local,
@@ -30,6 +32,12 @@ def _subpixel_flow(x: torch.Tensor, r: int) -> torch.Tensor:
     n, hh, ww, _ = x.shape
     x = x.reshape(n, hh, ww, 2, r, r).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(n, hh * r, ww * r, 2)
+
+
+def _max_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max-pool at stride 2 on [N,h,w,C], VALID: an odd size floors, as
+    flax's nn.max_pool does."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
 class EasyFlow(nn.Module):
@@ -78,20 +86,63 @@ class LTDFlow(nn.Module):
         x = torch.cat([reference, source], -1).to(self.dtype)
         for conv in (self.conv0, self.conv1):
             x = torch.relu(conv(x))
-            x = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+            x = _max_pool2(x)
         x = resize_bilinear(x, (h, w))
         return torch.tanh(self.conv2(x))
+
+
+class FRVSRFlow(nn.Module):
+    def __init__(self, channels: int = 3, dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        cin = 2 * channels
+        for p in range(3):
+            for q in range(2):
+                f = 32 * 2 ** p
+                setattr(self, f"conv0_{p}_{q}", Conv((3, 3, cin, f), generator))
+                cin = f
+        for p in range(3):
+            for q in range(2):
+                f = 256 // 2 ** p
+                setattr(self, f"conv1_{p}_{q}", Conv((3, 3, cin, f), generator))
+                cin = f
+        self.conv2 = Conv((3, 3, cin, 32), generator)
+        self.conv3 = Conv((3, 3, 32, 2), generator)
+
+    def forward(self, i_t, i_pt):
+        """i_t, i_pt [N,h,w,C] -> flow [N,h,w,2] in [-1, 1]: three levels of
+        two 3x3 convs (leaky ReLU 0.2) and a 2x2 max-pool, three decoder
+        levels each ending in a bilinear resize to twice the pooled size,
+        then a resize to (h, w) where the pools floored (180 -> 22 -> 176),
+        a conv and tanh(conv)."""
+        _, h, w, _ = i_t.shape
+        x = torch.cat([i_t, i_pt], -1).to(self.dtype)
+        for p in range(3):
+            for q in range(2):
+                x = leaky_relu(getattr(self, f"conv0_{p}_{q}")(x))
+            x = _max_pool2(x)
+        h1, w1 = x.shape[1], x.shape[2]
+        for p in range(3):
+            for q in range(2):
+                x = leaky_relu(getattr(self, f"conv1_{p}_{q}")(x))
+            x = resize_bilinear(x, (h1 * 2 ** (p + 1), w1 * 2 ** (p + 1)))
+        if x.shape[1] != h or x.shape[2] != w:
+            x = resize_bilinear(x, (h, w))
+        x = leaky_relu(self.conv2(x))
+        return torch.tanh(self.conv3(x))
 
 
 class YFamily(nn.Module):
     """What the Predictor reads of a Y-channel family: it serves through
     `serve_rgb` (the SR Y of the last output frame, the bicubic CbCr of the
     centre frame), pads LR frames to a multiple of 4 (the flow nets' two
-    stride-2 stages or pools), and `testvideos` reads blur{scale}/ unless
-    told otherwise.  serve_kwargs: extra arguments of the serving forward."""
+    stride-2 stages or pools), `testvideos` reads blur{scale}/ unless told
+    otherwise, and it runs in window batches (not recurrent).
+    serve_kwargs: extra arguments of the serving forward."""
     y_channel = True
     lr_multiple = 4
     reads_truth = False
+    recurrent = False
     serve_kwargs = {}
 
 

@@ -36,6 +36,7 @@ class PFNL(nn.Module):
     y_channel = False
     lr_multiple = 2
     reads_truth = True
+    recurrent = False
 
     def __init__(self, num_frames: int = 7, scale: int = 4, mf: int = 64, num_blocks: int = 20,
                  dtype: torch.dtype = torch.float32, generator: torch.Generator = None):

@@ -2,6 +2,10 @@
 pfnl_tpu/ops/color.py, whose constants these are, down to the reference's
 truncated inverse `_YCBCR_TINV`).  They act on the trailing channel axis
 of any rank and keep the input's dtype: bf16 stays bf16.
+
+`rgb2ycbcr_np` is the numpy float64 conversion of the MATLAB-equivalent
+metric path (reference utils.py:194-212), which the published PSNR tables
+are computed with (eval/metrics.py).
 """
 
 import numpy as np
@@ -50,3 +54,16 @@ def ycbcr2rgb(x: torch.Tensor) -> torch.Tensor:
     if x.shape[-1] == 1:
         return x
     return (x - _const(_YCBCR_OFFSET, x)) @ _const(_YCBCR_TINV, x).T
+
+
+def rgb2ycbcr_np(img: np.ndarray, max_val: float = 255.0) -> np.ndarray:
+    """Numpy metric-path conversion; `img` in [0,255] (or [0,1] with
+    max_val=1).  Bit-matches reference utils.py:194-212 (`_rgb2ycbcr`),
+    which itself matches MATLAB's rgb2ycbcr on doubles."""
+    t = np.array([[0.256788235294118, 0.504129411764706, 0.097905882352941],
+                  [-0.148223529411765, -0.290992156862745, 0.439215686274510],
+                  [0.439215686274510, -0.367788235294118, -0.071427450980392]])
+    offset = np.array([16.0, 128.0, 128.0])
+    if max_val == 1:
+        offset = offset / 255.0
+    return img @ t.T + offset

@@ -28,13 +28,21 @@ def conv2d_same(x: torch.Tensor, k: torch.Tensor, stride: int = 1) -> torch.Tens
 
 
 def conv_transpose_same2(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """`lax.conv_transpose(x, k, (2, 2), "SAME")` with a 4x4 HWIO kernel
-    (flax's transpose_kernel=False): [N,h,w,Ci] -> [N,2h,2w,Co].  It is
-    torch's transposed conv of the spatially FLIPPED kernel, laid out
-    [Ci,Co,kh,kw], with padding 1.  (A k=3 kernel would take padding 0 and
-    keep the first 2h rows and columns of the 2h+1.)"""
-    if tuple(k.shape[:2]) != (4, 4):
-        raise ValueError(f"conv_transpose_same2 takes a 4x4 kernel, got {tuple(k.shape)}")
+    """`lax.conv_transpose(x, k, (2, 2), "SAME")` with a 4x4 or 3x3 HWIO
+    kernel (flax's transpose_kernel=False): [N,h,w,Ci] -> [N,2h,2w,Co].  It
+    is torch's transposed conv of the spatially FLIPPED kernel, laid out
+    [Ci,Co,kh,kw]: with padding 1 for k=4; with padding 0 for k=3, keeping
+    the first 2h rows and 2w columns of the 2h+1 by 2w+1 result (TF pads
+    the odd total k + 1 - 2 = 2 of a stride-2 k=3 window as (2, 1): the
+    three other crops are wrong)."""
+    ksize = tuple(k.shape[:2])
+    if ksize not in ((4, 4), (3, 3)):
+        raise ValueError(f"conv_transpose_same2 takes a 4x4 or 3x3 kernel, got {tuple(k.shape)}")
     wt = k.to(x.dtype).flip(0, 1).permute(2, 3, 0, 1)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=2, padding=1)
+    xc = x.permute(0, 3, 1, 2)
+    if ksize == (4, 4):
+        y = F.conv_transpose2d(xc, wt, stride=2, padding=1)
+    else:
+        _, _, h, w = xc.shape
+        y = F.conv_transpose2d(xc, wt, stride=2)[:, :, :2 * h, :2 * w]
     return y.permute(0, 2, 3, 1)

@@ -3,7 +3,8 @@
     python -m pfnl_tpu_torch.ops.cuda.profile_splats [--against LIB] [--variants]
 
 For each case of SPLAT_CASES (the shapes the Y families and FRVSR's HR
-grid give the kernels), in bf16, it prints each kernel's time two ways:
+grid give the kernels: four serving windows' worth, and the one frame a
+recurrent step splats), in bf16, it prints each kernel's time two ways:
 - `events`: CUDA events around calls made back to back, as every kernel
   time of chip_smoke.py is read.  A call then costs the larger of its
   device time and the host time of its call, so a kernel faster than its
@@ -46,6 +47,7 @@ SPLAT_CASES = [("bounded_splat", "VESPCN", (12, 1, H, W), 2),
                ("bounded_splat", "LTDVSR", (20, 1, H, W), 1),
                ("bounded_splat", "MCResNet", (20, 1, H, W), 2),
                ("bounded_splat", "FRVSR HR grid", (4, 3, 4 * H, 4 * W), 1),
+               ("bounded_splat", "FRVSR serving", (1, 3, 4 * H, 4 * W), 1),
                ("spmc_splat", "DRVSR", (12, 1, H, W), 2)]
 TOL = 2e-2  # bf16: max |kernel - plain| / max |plain|
 REPS = 20   # calls a timing

@@ -56,10 +56,21 @@ def checkpoints(workdir: str):
     return sorted(glob.glob(os.path.join(workdir, "ckpt_*.pt")))
 
 
+def save_checkpoint(workdir: str, state: dict) -> str:
+    """Write state ("step", "model", and "optimizer" where there is Adam
+    state to resume) as workdir/ckpt_<step>.pt, atomically; returns the path."""
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, f"ckpt_{state['step']:09d}.pt")
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
+
+
 def load_newest_checkpoint(workdir: str, model, device):
     """Load the newest checkpoint under workdir into `model`; returns its
-    state dict ("step", "model", "optimizer"), or None when there is none
-    (the model keeps its weights, as JAX's restore keeps the init)."""
+    state dict ("step", "model" and, from training, "optimizer"), or None
+    when there is none (the model keeps its weights, as JAX's restore keeps
+    the init)."""
     ckpts = checkpoints(workdir)
     if not ckpts:
         return None
@@ -137,20 +148,20 @@ class Trainer:
         return checkpoints(self.workdir)
 
     def save(self):
-        os.makedirs(self.workdir, exist_ok=True)
-        path = os.path.join(self.workdir, f"ckpt_{self.global_step:09d}.pt")
-        torch.save({"step": self.global_step, "model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict()}, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        save_checkpoint(self.workdir, {"step": self.global_step, "model": self.model.state_dict(),
+                                       "optimizer": self.optimizer.state_dict()})
         for old in self.checkpoints()[:-KEEP_CHECKPOINTS]:
             os.remove(old)
 
     def restore(self) -> bool:
-        """Load the newest checkpoint, if there is one (reference reload=True)."""
+        """Load the newest checkpoint, if there is one (reference reload=True).
+        One without Adam state (`import-tf1` writes the model alone, at step
+        0) starts Adam fresh, as JAX's import writes a fresh optimizer state."""
         state = load_newest_checkpoint(self.workdir, self.model, self.device)
         if state is None:
             return False
-        self.optimizer.load_state_dict(state["optimizer"])
+        if "optimizer" in state:
+            self.optimizer.load_state_dict(state["optimizer"])
         self.global_step = int(state["step"])
         return True
 

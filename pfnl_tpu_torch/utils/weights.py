@@ -36,6 +36,24 @@ def from_flax(params, batch_stats=None) -> dict:
     return out
 
 
+def to_flax(model) -> tuple:
+    """The inverse of `from_flax` for a model's current weights: (params,
+    batch_stats), nested dicts of float32 numpy arrays keyed as flax keys
+    them (the model's buffers are its BatchNorm state; batch_stats is empty
+    for a model without)."""
+    def nest(named):
+        tree = {}
+        for name, t in named:
+            *path, leaf = name.split(".")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = t.detach().cpu().float().numpy()
+        return tree
+
+    return nest(model.named_parameters()), nest(model.named_buffers())
+
+
 def load_npz(path: str) -> dict:
     """Read a flat `.npz` whose keys are '/'-joined flax paths into a
     state_dict.  The keys of a checkpoint that carries both collections
