@@ -103,10 +103,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      delivered HR frames/s (and again for a second video), the device's
      busy share (torch.profiler), the host's time to enqueue a step beside
      the device's and its costliest operators, and peak memory.
+  9. flow-family training at each paper config of config.py (VESPCN, MCResNet,
+     LTDVSR, DRVSR, FRVSR at full width, float32, seeded weights) on four
+     seeded 12-frame 448x448 clips in memory (truth/ and blur4/ degraded on
+     the card) through TrainPipeline:
+     a. one fixed batch: the joint loss and every parameter's gradient
+        through K7/K8 (forward, `BoundedSplat` / `SpmcSplat`) and their
+        gather adjoints (backward) against pure autograd on the plain path,
+        worst relative L2 per parameter within GRAD_TOL; the launches a
+        step (FLOW_FAMILIES) and the adjoints' ms in the backward (CUDA
+        events around each adjoint call);
+     b. Trainer.fit on the kernel and the plain path, the four staged
+        families switching two steps into the timed window: launches a step,
+        finite losses, steady steps/s, peak memory, and on the kernel path
+        the device's busy ms a step (torch.profiler);
+ 10. the Evaluator on the card for all seven families (full width, float32,
+     seeded weights), one batch of 4 windows at eval_in_size 128x240 over
+     four seeded 20-frame sequences in memory: finite PSNR, the kernels'
+     launches a batch (EVAL_LAUNCHES), and for the Y families one frame's
+     SSIM on the card (`compute_ssim_batch`) within SSIM_TOL of the float64
+     host SSIM.
 
 The second-to-last line is a JSON summary of the kernels: launches from
 the path that runs each (phase 4 plus 5c for kernels 1-6, 6 and 8 for
-7, 6 for 8, 7b for 9, 7c for 10); errors and times at the shape named in
+7, 6 for 8, 7b for 9, 7c for 10; and phase 9b's kernel path for 7 and 8,
+phase 10 for 1-4 and 7-9); errors and times at the shape named in
 TIMED (bf16 but for kernels 5 and 6, float32 at the training shape);
 `bound_ms`, the least time the card could take for the same work (the larger of the
 bytes each call must move over 3.35 TB/s and its operations over the
@@ -121,6 +142,7 @@ else null.  The last line is
 device the script fails before printing any result.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -189,6 +211,22 @@ SOURCE = {
     "duf_block": "pfnl_tpu_torch/csrc/duf_block.cu",
     "duf_dense": "pfnl_tpu_torch/csrc/duf_dense.cu",
 }
+# phase 9: the flow families' launches a training step (forward) and the adjoint calls in
+# its backward: K7 once (DRVSR K8 once, and K7 for the full form's `warped_lr`, which no
+# loss reads, so no adjoint; JAX's jit drops that splat as dead code); FRVSR at T=10 K7
+# twice a frame after the first (the HR-grid upscale warp and the LR `warps`)
+FLOW_FAMILIES = {"vespcn": ({"bounded_splat": 1}, 1), "mcresnet": ({"bounded_splat": 1}, 1),
+                 "ltdvsr": ({"bounded_splat": 1}, 1),
+                 "drvsr": ({"spmc_splat": 1, "bounded_splat": 1}, 1),
+                 "frvsr": ({"bounded_splat": 18}, 18)}
+FLOW_WARM, FLOW_STEPS = 3, 8            # phase 9b: steps before / inside the timed window
+FLOW_CLIP = (4, 12, 448)                # phase 9: clips, frames, HR side (DRVSR crops 400)
+# phase 10: the Evaluator's launches a batch of 4 windows, eval_in_size 128x240, float32
+EVAL_LAUNCHES = {"pfnl": {"nonlocal_flash": 1, "pfrb_a": 20, "pfrb_b": 20, "pfnl_tail": 1},
+                 "vespcn": {"bounded_splat": 1}, "mcresnet": {"bounded_splat": 1},
+                 "ltdvsr": {"bounded_splat": 1}, "drvsr": {"spmc_splat": 1, "bounded_splat": 1},
+                 "frvsr": {"bounded_splat": 18}, "duf": {"duf_block": 24}}
+SSIM_TOL = 1e-4                         # phase 10: card SSIM of a frame vs float64 on the host
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
 TF32_ENTRIES = ("pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
@@ -1273,6 +1311,258 @@ def phase_frvsr_serving(smi, lr_frames, lrs):
     return counts
 
 
+def in_memory_set(tag, n_seqs, frames, h, w, seed):
+    """Seeded clips as uint8 truth/ frames and blur4/ frames degraded on the
+    card, in memory: (MemoryFrames, [Sequence])."""
+    from pfnl_tpu_torch.data.frames import MemoryFrames
+    from pfnl_tpu_torch.data.manifest import Sequence
+    from pfnl_tpu_torch.infer.predictor import to_uint8_img
+    from pfnl_tpu_torch.ops.degrade import downsample_4d
+
+    store, seqs = {}, []
+    for s in range(n_seqs):
+        clip = synthetic_clip(frames, h, w, seed + s)
+        with torch.inference_mode():
+            lr = downsample_4d(torch.from_numpy(clip).cuda().float() / 255.0, scale=4)
+        truth = [f"{tag}/seq{s}/truth/{i:04d}.png" for i in range(frames)]
+        blur = [f"{tag}/seq{s}/blur4/{i:04d}.png" for i in range(frames)]
+        store.update(zip(truth, clip))
+        store.update(zip(blur, to_uint8_img(lr.cpu().numpy())))
+        seqs.append(Sequence(path=f"{tag}/seq{s}", truth=truth, blur=blur))
+    return MemoryFrames(store), seqs
+
+
+@contextlib.contextmanager
+def timed_adjoints(events):
+    """Record CUDA events around every call of the splats' adjoints (the
+    backward of BoundedSplat / SpmcSplat) into `events`."""
+    from pfnl_tpu_torch.ops import warp
+
+    saved = warp.bounded_splat_adjoint, warp.spmc_splat_adjoint
+
+    def timed(fn):
+        def call(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            events.append((start, end))
+            return out
+        return call
+
+    warp.bounded_splat_adjoint, warp.spmc_splat_adjoint = map(timed, saved)
+    try:
+        yield
+    finally:
+        warp.bounded_splat_adjoint, warp.spmc_splat_adjoint = saved
+
+
+def _flow_cfg(family):
+    """The family's paper config, float32; the four staged families switch
+    two steps into phase 9b's timed window."""
+    from pfnl_tpu_torch.config import preset
+
+    staged = family != "frvsr"
+    return preset(family, reload=False, save_dir="pfnl_tpu_torch/build/smoke_ckpt",
+                  stage_switch_step=FLOW_WARM + 2 if staged else None)
+
+
+def _flow_gradients(family, cfg, batch, card):
+    """9a: one fixed batch through the family at full width: the kernel
+    path's joint loss and every gradient against pure autograd on the plain
+    path; returns the adjoints' ms in the kernel path's backward."""
+    from pfnl_tpu_torch.data.pipeline import device_augment_and_degrade
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.losses import LOSS_REGISTRY
+
+    model = seeded_model(family, torch.float32, SEED, num_frames=cfg.num_frames).train()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lr_in, gt = device_augment_and_degrade({k: torch.as_tensor(v).cuda() for k, v in batch.items()},
+                                           gen, cfg.producer, cfg.scale)
+    res, events = {}, []
+    for path in ("warm-up", "kernels", "plain"):
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        with timed_adjoints(events if path == "kernels" else []):
+            loss = LOSS_REGISTRY[family](model(lr_in, plain=path == "plain"), gt, lr_in)["loss"]
+            loss.backward()
+        torch.cuda.synchronize()
+        res[path] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()},
+                     {k: launches[k] for k in KERNELS if launches[k]})
+    adjoint_ms = sum(a.elapsed_time(b) for a, b in events)
+    want, adjoints = FLOW_FAMILIES[family]
+    if res["kernels"][2] != want or res["plain"][2] or len(events) != adjoints:
+        fail(f"{family}: launches, kernel path {res['kernels'][2]} (want {want}), plain path "
+             f"{res['plain'][2]} (want none); {len(events)} adjoint calls (want {adjoints})")
+    rel = {k: ((res["kernels"][1][k] - g).norm() / g.norm()).item()
+           for k, g in res["plain"][1].items()}
+    worst = max(rel, key=rel.get)
+    loss_k, loss_p = res["kernels"][0], res["plain"][0]
+    print(f"[9a {family}] batch {cfg.batch_size}, {cfg.num_frames} frames, LR "
+          f"{cfg.in_size}x{cfg.in_size}, float32: launches {want}; joint loss kernels "
+          f"{loss_k:.7f}, plain {loss_p:.7f}; worst ||g_k - g_p|| / ||g_p|| over {len(rel)} "
+          f"parameters {rel[worst]:.3e} ({worst}; tolerance {GRAD_TOL:.0e}), median "
+          f"{float(np.median(list(rel.values()))):.3e}; the splat adjoints "
+          f"{adjoint_ms:.3f} ms in a backward ({len(events)} calls) on {card}", flush=True)
+    if rel[worst] > GRAD_TOL or abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
+        fail(f"{family}: the kernel path's gradients disagree with the plain path's")
+    del model, res
+    torch.cuda.empty_cache()
+    return adjoint_ms
+
+
+def _flow_fit(family, cfg, pipe, plain, card):
+    """9b: Trainer.fit at the paper config across the stage switch: launches
+    a step, finite losses, steady steps/s and peak memory; on the kernel path
+    also the device's busy ms a step (torch.profiler over pre-fetched steps)."""
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.trainer import Trainer
+    from torch.profiler import ProfilerActivity, profile
+
+    path = "plain" if plain else "kernels"
+    tr = Trainer(cfg, model=seeded_model(family, torch.float32, SEED,
+                                         num_frames=cfg.num_frames).train(),
+                 device="cuda", plain=plain)
+    logged = []
+
+    def log(line):
+        logged.append(line)
+
+    tr.fit(pipe, max_steps=FLOW_WARM, save_every=10**9, log_every=10**9, print_fn=log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.fit(pipe, max_steps=FLOW_WARM + FLOW_STEPS, save_every=10**9, log_every=2, print_fn=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(line.rsplit("loss:", 1)[1]) for line in logged if "loss:" in line]
+    finite = all(np.isfinite(losses)) and all(torch.isfinite(p).all()
+                                             for p in tr.model.parameters())
+    want = {k: 0 if plain else FLOW_FAMILIES[family][0].get(k, 0) * FLOW_STEPS for k in KERNELS}
+    if not finite or not losses:
+        fail(f"{family} {path}: non-finite or missing losses {losses}")
+    if counts != want:
+        fail(f"{family} {path}: launch counts {counts} != {want} over {FLOW_STEPS} steps")
+    if tr.stage != int(cfg.stage_switch_step is not None):
+        fail(f"{family} {path}: stage {tr.stage} after step {tr.global_step}")
+    step_ms = wall * 1e3 / FLOW_STEPS
+    busy = ""
+    if not plain:
+        batches = [pipe.get_batch() for _ in range(3)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for b in batches:
+                tr.step(b, tr.step_generator(tr.global_step))
+            torch.cuda.synchronize()
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / len(batches)
+        host_ops = sorted((e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CPU),
+                          key=lambda e: -e.self_cpu_time_total)[:5]
+        busy = (f"; device busy {busy_ms:.3f} ms a step ({busy_ms / step_ms:.1%} of the steady "
+                f"step; torch.profiler kernel time over {len(batches)} pre-fetched steps); host "
+                f"ops by self CPU time a step (under the profiler): " + ", ".join(
+                    f"{e.key} {e.self_cpu_time_total / 1e3 / len(batches):.3f} ms "
+                    f"({e.count // len(batches)} calls)" for e in host_ops))
+    switch = ("single stage" if cfg.stage_switch_step is None
+              else f"the switch at step {cfg.stage_switch_step}")
+    print(f"[9b {family}] {path}: {FLOW_STEPS} steps after {FLOW_WARM} ({switch}) in {wall:.3f} s: steady {FLOW_STEPS / wall:.3f} steps/s "
+          f"({step_ms:.3f} ms a step); peak memory {peak / 2**30:.2f} GiB; losses {losses}; "
+          f"launches per step { {k: v / FLOW_STEPS for k, v in counts.items() if v} }{busy} "
+          f"on {card}", flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    return counts, FLOW_STEPS / wall
+
+
+def phase_flow_training(card):
+    """9: the five flow families' paper configs on seeded in-memory clips
+    through TrainPipeline: 9a the gradients on one batch, 9b Trainer.fit on
+    the kernel and the plain path."""
+    from pfnl_tpu_torch.data.pipeline import TrainPipeline
+    from pfnl_tpu_torch.ops.cuda import KERNELS
+
+    n_seqs, frames, hw = FLOW_CLIP
+    mem, seqs = in_memory_set("flow", n_seqs, frames, hw, hw, SEED + 20)
+    total = {k: 0 for k in KERNELS}
+    for family in FLOW_FAMILIES:
+        cfg = _flow_cfg(family)
+        pipe = TrainPipeline(seqs, cfg.producer, cfg.num_frames, cfg.in_size, cfg.scale,
+                             cfg.batch_size, seed=cfg.seed, num_threads=cfg.host_threads,
+                             prefetch=cfg.prefetch, source=mem)
+        try:
+            adjoint_ms = _flow_gradients(family, cfg, pipe.get_batch(), card)
+            counts, rate = _flow_fit(family, cfg, pipe, False, card)
+            _, plain_rate = _flow_fit(family, cfg, pipe, True, card)
+        finally:
+            pipe.close()
+        for k in KERNELS:
+            total[k] += counts[k]
+        print(f"[9 {family}] steady steps/s: kernels {rate:.3f}, plain {plain_rate:.3f}; the "
+              f"splat adjoints {adjoint_ms:.3f} ms a step (batch {cfg.batch_size}, float32, "
+              f"TF32 off) on {card}", flush=True)
+    return total
+
+
+def phase_eval(card):
+    """10: the Evaluator on the card, every family at full width (float32,
+    seeded weights), one batch of 4 windows at eval_in_size 128x240 over 4
+    seeded 20-frame sequences in memory: finite PSNR, the kernels' launches
+    a batch, and for the Y families one frame's SSIM on the card against
+    the float64 host SSIM."""
+    from pfnl_tpu_torch.config import preset
+    from pfnl_tpu_torch.eval.evaluator import Evaluator
+    from pfnl_tpu_torch.eval.metrics import compute_ssim, compute_ssim_batch
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.ops.color import rgb2y
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+
+    in_h, in_w = preset("pfnl").eval_in_size
+    mem, seqs = in_memory_set("eval", 4, 20, in_h * 4 + 16, in_w * 4 + 16, SEED + 30)
+    total = {k: 0 for k in KERNELS}
+    for family, want in EVAL_LAUNCHES.items():
+        cfg = preset(family, reload=False)
+        model = seeded_model(family, torch.float32, SEED)
+        ev = Evaluator(cfg, model, source=mem, sequences=seqs)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = ev.run(0, print_fn=lambda *a: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: launches[k] for k in KERNELS}
+        for k in KERNELS:
+            total[k] += counts[k]
+        psnr = got[0]
+        note = ""
+        if len(got) == 3:
+            lr, gt = next(ev._windows())
+            with torch.inference_mode():
+                sr = model(torch.from_numpy(lr[None]).cuda())["sr"][0, -1, :, :, 0]
+                gt_y = rgb2y(torch.from_numpy(gt).cuda())[0, :, :, 0]
+                card_ssim = compute_ssim_batch(sr, gt_y, l=1.0).item()
+            host_ssim = compute_ssim(sr.double().cpu().numpy(), gt_y.double().cpu().numpy(),
+                                     l=1.0)
+            note = (f", SSIM {got[2].tolist()}; one frame's SSIM on the card {card_ssim:.7f}, "
+                    f"float64 on the host {host_ssim:.7f} (tolerance {SSIM_TOL:.0e})")
+            if abs(card_ssim - host_ssim) > SSIM_TOL:
+                fail(f"eval {family}: the card's SSIM {card_ssim} != the host's {host_ssim}")
+        print(f"[10 eval] {family}: 4 windows in {wall:.3f} s, PSNR {psnr.tolist()}{note}; "
+              f"launches { {k: v for k, v in counts.items() if v} } on {card}", flush=True)
+        if not np.all(np.isfinite(psnr)):
+            fail(f"eval {family}: PSNR {psnr}")
+        if counts != {k: want.get(k, 0) for k in KERNELS}:
+            fail(f"eval {family}: launch counts {counts} != {want} for one batch")
+        del model, ev
+        torch.cuda.empty_cache()
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -1298,6 +1588,8 @@ def main():
     del duf_model, window, ref
     torch.cuda.empty_cache()
     frvsr_counts = phase_frvsr_serving(smi, lr_frames, lrs)
+    flow_counts = phase_flow_training(smi)
+    eval_counts = phase_eval(smi)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
@@ -1305,8 +1597,9 @@ def main():
         fail(f"the port loaded JAX-side modules: {leaked[:5]}")
 
     path_launches = {k: counts[k] + train_counts[k] + y_counts[k] + frvsr_counts[k]
-                     for k in TPU_KERNEL}
-    path_launches.update(duf_block=duf_counts["duf_block"], duf_dense=pallas_counts["duf_dense"])
+                     + flow_counts[k] + eval_counts[k] for k in TPU_KERNEL}
+    path_launches.update(duf_block=duf_counts["duf_block"] + eval_counts["duf_block"],
+                         duf_dense=pallas_counts["duf_dense"])
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],
                     launches=path_launches[k], **{f: results[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

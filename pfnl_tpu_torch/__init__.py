@@ -7,7 +7,8 @@ reference it is tested against, and mirrors its layout:
   ops/       tensor ops (shuffle, resize, degrade, colour, TF-SAME convs,
              non-local attention, losses, warps, the ConvLSTM cell), the
              plain PyTorch versions of the PFRB chain, its backward, the
-             merge tail and the two splats, and the chain under autograd
+             merge tail and the two splats with their gather adjoints, and
+             the chain and the splats under autograd
   ops/cuda/  wrappers of the hand-written CUDA kernels (sources in csrc/),
              built with nvcc on first use into build/
   models/    PFNL, the Y-channel flow families (VESPCN, MCResNet, LTDVSR,
@@ -16,8 +17,10 @@ reference it is tested against, and mirrors its layout:
              TF1 checkpoint reader and the seven families' importers
   data/      manifests, frame stores, the training input pipeline, the
              blur{scale}/ renderer and filelists (prepare)
-  train/     losses and the Trainer
-  eval/      periodic validation (PSNR), the MATLAB-equivalent Y-PSNR/SSIM
+  train/     the losses and the Trainer of every family but DUF (staged
+             optimisation, DRVSR's LSTM clip)
+  eval/      periodic validation of every family (PSNR; SSIM on the card
+             for the Y families), the MATLAB-equivalent Y-PSNR/SSIM
              metrics and parity tables
   infer/     the testvideos() inference API: window batches, and FRVSR's
              frame-by-frame recurrence

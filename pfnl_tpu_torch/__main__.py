@@ -4,10 +4,11 @@
     python -m pfnl_tpu_torch test {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr,duf} --data DIR
         [--save-dir D] [--weights params.npz] [--compute-dtype bfloat16]
         [--device cuda] [--start 0] [--name NAME] [--seed 0]
-    python -m pfnl_tpu_torch eval pfnl [--save-dir D] [--eval-list F]
-        [--compute-dtype float32|bfloat16] [--device cuda]
-    python -m pfnl_tpu_torch train pfnl --train-list F [--eval-list F]
-        [--steps N] [--in-size 32] [--batch-size 16] [--save-dir D]
+    python -m pfnl_tpu_torch eval {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr,duf} [--save-dir D]
+        [--eval-list F] [--eval-in-size 128x240] [--compute-dtype float32|bfloat16]
+        [--device cuda]
+    python -m pfnl_tpu_torch train {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr} --train-list F
+        [--eval-list F] [--eval-in-size 128x240] [--steps N] [--in-size 32] [--batch-size 16] [--save-dir D]
         [--save-every 500] [--compute-dtype float32|bfloat16] [--no-eval]
         [--device cuda]
     python -m pfnl_tpu_torch import-tf1 MODEL --ckpt PREFIX|FILE.h5 [--save-dir D]
@@ -28,14 +29,16 @@ Its weights, as JAX's `_restored_state`: the newest `ckpt_*.pt` under
 paths (for DUF with its BatchNorm state: `params/...` and
 `batch_stats/...`).
 
-`eval` restores the same way and runs the Evaluator at the checkpoint's
-step, appending to `<save-dir>/<model>.txt` as `train`'s evaluations do.
-Only PFNL trains in the port, so only PFNL evaluates.
+`eval` restores the same way and runs the family's Evaluator at the
+checkpoint's step, appending to `<save-dir>/<model>.txt` as `train`'s
+evaluations do (PFNL and DUF: RGB PSNR; the Y families: Y PSNR and SSIM per
+output frame; FRVSR: RGB PSNR per frame of its 10-frame windows).
 
-`train` trains from the sequences of a filelist (the paper config by
-default: batch 16, LR crop 32, 7 frames, float32), saving checkpoints and
-the eval log (`pfnl.txt`) under `--save-dir`, and resuming from its newest
-checkpoint.
+`train` trains from the sequences of a filelist (the family's paper config
+by default, e.g. PFNL batch 16, LR crop 32, 7 frames; float32; the flow
+families staged at their `stage_switch_step`), saving checkpoints and the
+eval log (`<model>.txt`) under `--save-dir`, and resuming from its newest
+checkpoint.  DUF does not train in the port yet.
 
 `import-tf1` reads the authors' TF1 checkpoint (a `PREFIX` with its
 `.index` and `.data-*` files, no TensorFlow needed; for DUF also the
@@ -61,6 +64,15 @@ import sys
 import torch
 
 from pfnl_tpu_torch.models import MODEL_REGISTRY
+
+# the families `train` takes: every one but DUF, whose training is not ported
+TRAINED = ["pfnl", "vespcn", "mcresnet", "ltdvsr", "drvsr", "frvsr"]
+
+
+def _hw(text: str) -> tuple:
+    """"128x240" -> (128, 240), as run.py's --eval-in-size."""
+    h, w = text.split("x")
+    return int(h), int(w)
 
 
 def _parser():
@@ -89,13 +101,15 @@ def _parser():
     e.add_argument("model", choices=sorted(MODEL_REGISTRY))
     e.add_argument("--save-dir", default=None)
     e.add_argument("--eval-list", default=None)
+    e.add_argument("--eval-in-size", type=_hw, default=None, help="HxW of the LR eval crops")
     e.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
     e.add_argument("--device", default="cuda")
 
     r = sub.add_parser("train", help="train from a filelist of sequence dirs")
-    r.add_argument("model", choices=["pfnl"])
+    r.add_argument("model", choices=TRAINED)
     r.add_argument("--train-list", default=None)
     r.add_argument("--eval-list", default=None)
+    r.add_argument("--eval-in-size", type=_hw, default=None, help="HxW of the LR eval crops")
     r.add_argument("--steps", type=int, default=None, help="last global step (default: preset)")
     r.add_argument("--in-size", type=int, default=None, help="LR crop (GT crop x4)")
     r.add_argument("--batch-size", type=int, default=None)
@@ -124,12 +138,6 @@ def _parser():
     y.add_argument("--tables-only", action="store_true",
                    help="skip inference, just recompute the table")
     return p
-
-
-# what the families other than PFNL wait for before they train, and so evaluate
-_NOT_TRAINED = {"duf": "the DUF training slice",
-                **{m: "the flow-family training slice" for m in ("vespcn", "mcresnet", "ltdvsr",
-                                                                 "drvsr", "frvsr")}}
 
 
 def _restored_model(args, cfg, seed=0, weights=None):
@@ -226,11 +234,8 @@ def cmd_eval(args):
     at the checkpoint's step."""
     from pfnl_tpu_torch.eval.evaluator import Evaluator
 
-    if args.model in _NOT_TRAINED:
-        raise SystemExit(f"eval {args.model}: the port does not train {args.model} yet, so it "
-                         f"has no checkpoint to evaluate; that comes with "
-                         f"{_NOT_TRAINED[args.model]}")
-    cfg = _config(args, **({"eval_list": args.eval_list} if args.eval_list else {}))
+    cfg = _config(args, **{k: v for k, v in (("eval_list", args.eval_list),
+                                             ("eval_in_size", args.eval_in_size)) if v})
     cfg.log_path = os.path.join(cfg.save_dir, f"{cfg.model}.txt")
     model, step = _restored_model(args, cfg)
     Evaluator(cfg, model).run(step, log_path=cfg.log_path)
@@ -246,7 +251,7 @@ def cmd_train(args):
 
     over = {k: v for k, v in (("train_list", args.train_list), ("eval_list", args.eval_list),
                               ("in_size", args.in_size), ("batch_size", args.batch_size),
-                              ("save_dir", args.save_dir),
+                              ("eval_in_size", args.eval_in_size), ("save_dir", args.save_dir),
                               ("compute_dtype", args.compute_dtype)) if v is not None}
     cfg = preset(args.model, **over)
     cfg.log_path = os.path.join(cfg.save_dir, f"{cfg.model}.txt")

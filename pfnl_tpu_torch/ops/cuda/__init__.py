@@ -4,8 +4,9 @@ Each wrapper runs its plain PyTorch version on a CPU tensor and launches
 its kernel on a CUDA tensor (or raises); there is no fallback from one to
 the other.  A kernel records no autograd graph, so on a CUDA tensor a
 wrapper raises when grad is enabled and an input requires it; training
-reaches kernels 2-6 through ops/pfrb_chain.py and `merge_tail`, kernel 10
-through `conv3x3x3`.  `launches` counts calls that launch a kernel, by
+reaches kernels 2-6 through ops/pfrb_chain.py and `merge_tail`, kernels 7
+and 8 through `BoundedSplat` / `SpmcSplat` (ops/warp.py routes to them),
+kernel 10 through `conv3x3x3`.  `launches` counts calls that launch a kernel, by
 name (kernels 4 and 9 are two launches from one call, counted once):
 
   nonlocal_flash  kernel 1   ops/cuda/nonlocal_flash.py  csrc/nonlocal_flash.cu, mma.cuh

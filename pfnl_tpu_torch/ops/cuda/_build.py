@@ -180,13 +180,14 @@ def check_no_grad(name: str, *tensors):
     """A kernel writes its outputs through raw pointers, outside autograd's
     graph.  Raise rather than cut the graph without saying so when grad
     is enabled and any input or parameter requires it; gradients reach the
-    kernels only through ops/pfrb_chain.py and the tail's Function, whose
-    forward runs with grad disabled."""
+    kernels only through their autograd Functions (ops/pfrb_chain.py, the
+    tail's `MergeTail`, and the splats' `BoundedSplat` / `SpmcSplat`, which
+    ops/warp.py routes to), whose forwards run with grad disabled."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: a CUDA kernel records no autograd graph, and an input requires grad; "
             "call it under torch.no_grad()/torch.inference_mode(), or train through "
-            "pfrb_chain / merge_tail")
+            "pfrb_chain / merge_tail / ops.warp.forward_warp_local / forward_warp_spmc")
 
 
 def weight_f32(w: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:

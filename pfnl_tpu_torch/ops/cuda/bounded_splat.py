@@ -4,7 +4,9 @@ Counterpart of `bounded_splat_canvas` in
 pfnl_tpu/ops/pallas/bounded_splat.py plus the border fold that
 pfnl_tpu/ops/warp.py applies to its canvas; the plain version is
 `forward_warp_local_ref` (ops/warp.py).  The public entry is
-`ops.warp.forward_warp_local`.
+`ops.warp.forward_warp_local`, which trains through `BoundedSplat`: the
+kernel forward, the plain gather adjoint `warp.bounded_splat_adjoint`
+backward (the JAX package's adjoint is XLA too, no Pallas kernel).
 """
 
 import torch
@@ -39,3 +41,20 @@ def bounded_splat(im: torch.Tensor, uv: torch.Tensor, max_disp: int) -> torch.Te
     _build.call(f"pfnl_bounded_splat_{sfx}", im, uv, out, b, h, w, c, int(max_disp))
     _build.launches["bounded_splat"] += 1
     return out
+
+
+class BoundedSplat(torch.autograd.Function):
+    """Kernel 7 under autograd: the forward launches the kernel (grad is off
+    inside a Function's forward), the backward is the gather adjoint."""
+
+    @staticmethod
+    def forward(ctx, im, uv, max_disp: int):
+        ctx.max_disp = max_disp
+        ctx.save_for_backward(im, uv)
+        return bounded_splat(im, uv, max_disp)
+
+    @staticmethod
+    def backward(ctx, g):
+        im, uv = ctx.saved_tensors
+        d_im, d_uv = warp.bounded_splat_adjoint(im, uv, g, ctx.max_disp)
+        return d_im, d_uv, None

@@ -3,7 +3,9 @@
 Counterpart of `spmc_phases` in pfnl_tpu/ops/pallas/spmc_splat.py plus
 the phase interleave and border fold that pfnl_tpu/ops/warp.py applies to
 its canvases; the plain version is `forward_warp_local_spmc`
-(ops/warp.py).  The public entry is `ops.warp.forward_warp_spmc`.
+(ops/warp.py).  The public entry is `ops.warp.forward_warp_spmc`, which
+trains through `SpmcSplat`: the kernel forward, the plain gather adjoint
+`warp.spmc_splat_adjoint` backward (XLA in the JAX package too).
 """
 
 import torch
@@ -38,3 +40,20 @@ def spmc_splat(im: torch.Tensor, uv: torch.Tensor, scale: int, max_disp: int) ->
     _build.call(f"pfnl_spmc_splat_{sfx}", im, uv, out, b, h, w, int(max_disp))
     _build.launches["spmc_splat"] += 1
     return out
+
+
+class SpmcSplat(torch.autograd.Function):
+    """Kernel 8 under autograd: the forward launches the kernel (grad is off
+    inside a Function's forward), the backward is the gather adjoint."""
+
+    @staticmethod
+    def forward(ctx, im, uv, scale: int, max_disp: int):
+        ctx.scale, ctx.max_disp = scale, max_disp
+        ctx.save_for_backward(im, uv)
+        return spmc_splat(im, uv, scale, max_disp)
+
+    @staticmethod
+    def backward(ctx, g):
+        im, uv = ctx.saved_tensors
+        d_im, d_uv = warp.spmc_splat_adjoint(im, uv, g, ctx.scale, ctx.max_disp)
+        return d_im, d_uv, None, None

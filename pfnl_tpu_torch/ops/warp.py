@@ -17,7 +17,11 @@ dtype; outputs keep the image's dtype.
                            canvases of (2R+1)^2 shift-adds each, then the
                            interleave and the fold: kernel 8's plain version
   forward_warp_local,      the public splats: kernel 7 / kernel 8 on a CUDA
-  forward_warp_spmc        tensor, the plain versions above on a CPU tensor
+  forward_warp_spmc        tensor (under autograd through their Functions),
+                           the plain versions above on a CPU tensor
+  bounded_splat_adjoint,   the splats' gradients: gathers of the cotangent
+  spmc_splat_adjoint       at the clipped tap positions (XLA in the JAX
+                           package, plain here too)
 
 The bounded splats keep the TPU kernels' acceptance windows: a tap lands
 only when its offset from the source lies in the window (|offset| <= R+1
@@ -194,11 +198,68 @@ def forward_warp_local_spmc(im: torch.Tensor, uv: torch.Tensor, scale: int,
     return fold_border(hr, p * s).to(im.dtype)
 
 
+def _splat_adjoint(im, uv, g, scale: int):
+    """The bilinear splat's adjoint: the four taps of each source gather the
+    float32 cotangent at their positions clipped into g's grid, weighted by
+    the taps of the unclipped floors (pfnl_tpu/ops/warp.py `_bsplat_bwd`,
+    `_spmc_bwd`).  Returns (d_im, d_uv) in the inputs' dtypes; d_uv sums
+    over the channels, times `scale` (the coordinates' own scaling)."""
+    b, h, w, _ = im.shape
+    oh, ow = g.shape[1], g.shape[2]
+    gf, imf, uvf = g.float(), im.float(), uv.float()
+    gx = torch.arange(w, dtype=torch.float32, device=im.device)[None, None, :]
+    gy = torch.arange(h, dtype=torch.float32, device=im.device)[None, :, None]
+    x = gx + uvf[..., 0]
+    y = gy + uvf[..., 1]
+    if scale != 1:
+        x, y = x * scale, y * scale
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    x1f, y1f = x0f + 1.0, y0f + 1.0
+    x0, x1 = x0f.long().clamp(0, ow - 1), x1f.long().clamp(0, ow - 1)
+    y0, y1 = y0f.long().clamp(0, oh - 1), y1f.long().clamp(0, oh - 1)
+    bidx = torch.arange(b, device=im.device)[:, None, None]
+    ga, gb, gc, gd = gf[bidx, y0, x0], gf[bidx, y1, x0], gf[bidx, y0, x1], gf[bidx, y1, x1]
+    ax, bx = (x1f - x)[..., None], (x - x0f)[..., None]
+    ay, by = (y1f - y)[..., None], (y - y0f)[..., None]
+    d_im = ax * ay * ga + ax * by * gb + bx * ay * gc + bx * by * gd
+    d_x = -ay * ga - by * gb + ay * gc + by * gd
+    d_y = -ax * ga + ax * gb - bx * gc + bx * gd
+    d_uv = torch.stack([(imf * d_x).sum(-1), (imf * d_y).sum(-1)], -1)
+    if scale != 1:
+        d_uv = d_uv * scale
+    return d_im.to(im.dtype), d_uv.to(uv.dtype)
+
+
+def bounded_splat_adjoint(im: torch.Tensor, uv: torch.Tensor, g: torch.Tensor,
+                          max_disp: int) -> tuple:
+    """Gradients (d_im, d_uv) of kernel 7's splat `forward_warp_local(im, uv,
+    max_disp)` for the cotangent g [B,H,W,C]; the bound needs no window
+    here (|uv| <= max_disp keeps every tap inside it)."""
+    return _splat_adjoint(im, uv, g, 1)
+
+
+def spmc_splat_adjoint(im: torch.Tensor, uv: torch.Tensor, g: torch.Tensor, scale: int,
+                       max_disp: int) -> tuple:
+    """Gradients (d_im, d_uv) of kernel 8's splat `forward_warp_spmc(im, uv,
+    scale, max_disp)` for the cotangent g [B,sH,sW,C]."""
+    return _splat_adjoint(im, uv, g, int(scale))
+
+
+def _needs_graph(*tensors) -> bool:
+    """A CUDA call whose result autograd must differentiate: it goes through
+    the kernel's Function (kernel forward, plain adjoint backward)."""
+    return (tensors[0].device.type != "cpu" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors))
+
+
 def forward_warp_local(im: torch.Tensor, uv: torch.Tensor, max_disp: int = 1) -> torch.Tensor:
     """Bounded same-size bilinear splat (|uv| <= max_disp): kernel 7 on a
-    CUDA tensor, `forward_warp_local_ref` on a CPU tensor."""
+    CUDA tensor (through `BoundedSplat` when autograd records), the plain
+    `forward_warp_local_ref` on a CPU tensor."""
     im, fold = _fold5d(im)
     uv, _ = _fold5d(uv)
+    if _needs_graph(im, uv):
+        return _unfold5d(_k7.BoundedSplat.apply(im, uv, int(max_disp)), fold)
     return _unfold5d(_k7.bounded_splat(im, uv, int(max_disp)), fold)
 
 
@@ -206,9 +267,12 @@ def forward_warp_spmc(im: torch.Tensor, uv: torch.Tensor, scale: int,
                       max_disp: int = 2) -> torch.Tensor:
     """SPMC upscale-while-warp splat of a single-channel image
     ([B,H,W,1] or [N,T,H,W,1]) for |uv| <= max_disp: kernel 8 on a CUDA
-    tensor, `forward_warp_local_spmc` on a CPU tensor."""
+    tensor (through `SpmcSplat` when autograd records), the plain
+    `forward_warp_local_spmc` on a CPU tensor."""
     im, fold = _fold5d(im)
     uv, _ = _fold5d(uv)
     if im.shape[-1] != 1:
         raise ValueError(f"forward_warp_spmc is single-channel (Y) only, got C={im.shape[-1]}")
+    if _needs_graph(im, uv):
+        return _unfold5d(_k8.SpmcSplat.apply(im, uv, int(scale), int(max_disp)), fold)
     return _unfold5d(_k8.spmc_splat(im, uv, int(scale), int(max_disp)), fold)

@@ -1,23 +1,34 @@
-"""Trainer (counterpart: pfnl_tpu/train/trainer.py:78-355), PFNL family.
+"""Trainer (counterpart: pfnl_tpu/train/trainer.py:46-355), every family
+but DUF.
 
 Replicates the reference training semantics:
   * Adam (beta1=0.9, beta2=0.999, eps=1e-8) with polynomial lr decay
     driven by the *global* step (tf.train.polynomial_decay,
     model/pfnl.py:156), evaluated at the step before its increment, as
     optax.polynomial_schedule in the JAX trainer (:177-181);
+  * staged optimisation for the flow families (`stage_switch_step`): before
+    the switch the SR-only loss moves the SR parameters alone (the flow
+    nets' stay bitwise unchanged), from the switch on the joint loss moves
+    every parameter under a second Adam whose state starts fresh there,
+    like the reference's two coexisting AdamOptimizers
+    (model/vespcn.py:227-229,253-257; JAX :110-116, :183-185);
+  * DRVSR's LSTM-only clip_by_global_norm(3) before Adam, in both stages
+    (model/drvsr.py:313-326; JAX :97-108);
   * NaN check + loss>10 collapse break (model/pfnl.py:197-199), at log
     cadence (a per-step readback would wait on the device every step);
   * save + eval every 500 steps, loss print every 20 (model/pfnl.py:180-192);
-  * checkpoints (step, parameters, Adam state) under `workdir`, newest 5
-    kept; reload=True resumes from the newest (reference semantics).
+  * checkpoints (step, parameters, every stage's Adam state) under
+    `workdir`, newest 5 kept; reload=True resumes from the newest
+    (reference semantics), in either stage.
 
 One step: the uint8 host batch goes to the device, where it is augmented
-and degraded (data/pipeline.py), then forward, Charbonnier loss, backward
-(kernels 5 and 6 on a CUDA device) and the Adam update.
+and degraded (data/pipeline.py), then forward, loss, backward (on a CUDA
+device PFNL's chain runs kernels 5 and 6; the flow families' splats run
+kernels 7 and 8 forward and their gather adjoints backward) and the Adam
+update.
 
-Not here yet, each raising: staged optimisation (`stage_switch_step`, the
-flow families), DRVSR's LSTM-only gradient clipping, DUF's BatchNorm
-statistics.  Checkpoints are torch.save files; the JAX package's orbax
+DUF raises: its training BatchNorm statistics and `duf_loss` come with DUF
+training.  Checkpoints are torch.save files; the JAX package's orbax
 checkpoints are not read (`utils/weights.from_flax` seeds the port from
 JAX parameters).
 """
@@ -31,10 +42,34 @@ from typing import Callable, Optional
 import torch
 
 from pfnl_tpu_torch.data.pipeline import device_augment_and_degrade
-from pfnl_tpu_torch.models.pfnl import PFNL
+from pfnl_tpu_torch.models import MODEL_REGISTRY
 from pfnl_tpu_torch.train.losses import LOSS_REGISTRY
 
 KEEP_CHECKPOINTS = 5
+# top-level modules whose parameters are the "flow" stage's (JAX `_label_params`)
+FLOW_MODULES = ("easyflow", "flow", "flownet")
+LSTM_CLIP_NORM = 3.0  # DRVSR (model/drvsr.py:313-326)
+
+
+def is_flow_param(name: str) -> bool:
+    return name.split(".", 1)[0] in FLOW_MODULES
+
+
+def is_lstm_param(name: str) -> bool:
+    """Any module on the parameter's path named with "lstm" (JAX `_lstm_mask`)."""
+    return any("lstm" in k.lower() for k in name.split("."))
+
+
+def clip_by_global_norm_(grads, max_norm: float):
+    """optax.clip_by_global_norm in place: below max_norm the gradients stay
+    as they are, otherwise each becomes g / norm * max_norm (no epsilon, so
+    not torch's clip_grad_norm_).  No host sync: the choice is a select."""
+    if not grads:
+        return
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
 
 
 def polynomial_schedule(init_value: float, end_value: float, power: float,
@@ -57,8 +92,9 @@ def checkpoints(workdir: str):
 
 
 def save_checkpoint(workdir: str, state: dict) -> str:
-    """Write state ("step", "model", and "optimizer" where there is Adam
-    state to resume) as workdir/ckpt_<step>.pt, atomically; returns the path."""
+    """Write state ("step", "model", and "optimizers", one Adam state a
+    stage, where there is Adam state to resume) as workdir/ckpt_<step>.pt,
+    atomically; returns the path."""
     os.makedirs(workdir, exist_ok=True)
     path = os.path.join(workdir, f"ckpt_{state['step']:09d}.pt")
     torch.save(state, path + ".tmp")
@@ -68,7 +104,7 @@ def save_checkpoint(workdir: str, state: dict) -> str:
 
 def load_newest_checkpoint(workdir: str, model, device):
     """Load the newest checkpoint under workdir into `model`; returns its
-    state dict ("step", "model" and, from training, "optimizer"), or None
+    state dict ("step", "model" and, from training, "optimizers"), or None
     when there is none (the model keeps its weights, as JAX's restore keeps
     the init)."""
     ckpts = checkpoints(workdir)
@@ -79,13 +115,14 @@ def load_newest_checkpoint(workdir: str, model, device):
     return state
 
 
-def build_model(cfg) -> PFNL:
-    """The config's model with seeded random weights; compute_dtype
-    "bfloat16" is mixed precision (bf16 activations, float32 parameters and
-    Adam state, float32 output), as in the JAX package."""
+def build_model(cfg):
+    """The config's model (`MODEL_REGISTRY`, the preset's num_frames and
+    scale) with weights random from cfg.seed; compute_dtype "bfloat16" is
+    mixed precision (bf16 activations, float32 parameters and Adam state,
+    float32 loss-facing outputs), as in the JAX package."""
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    return PFNL(num_frames=cfg.num_frames, scale=cfg.scale, dtype=dtype,
-                generator=torch.Generator().manual_seed(cfg.seed))
+    return MODEL_REGISTRY[cfg.model](num_frames=cfg.num_frames, scale=cfg.scale, dtype=dtype,
+                                     generator=torch.Generator().manual_seed(cfg.seed))
 
 
 class Trainer:
@@ -94,14 +131,9 @@ class Trainer:
         """cfg: a pfnl_tpu.config.Config.  device: where the model, the
         batches and the optimizer state live.  plain: run the model's
         plain path under plain autograd (the reference for the kernels)."""
-        if cfg.model == "drvsr":
-            raise NotImplementedError("DRVSR's LSTM-only gradient clipping comes with its family")
         if cfg.model == "duf":
-            raise NotImplementedError("DUF's BatchNorm statistics come with its family")
-        if cfg.model != "pfnl":
-            raise NotImplementedError(f"training {cfg.model!r} is not ported: PFNL only")
-        if cfg.stage_switch_step is not None:
-            raise NotImplementedError("staged optimisation comes with the flow families")
+            raise NotImplementedError("DUF training (its BatchNorm statistics, duf_loss) "
+                                      "is not ported")
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = (model if model is not None else build_model(cfg)).to(self.device)
@@ -110,11 +142,33 @@ class Trainer:
         self.workdir = workdir or cfg.save_dir
         self.schedule = polynomial_schedule(cfg.learning_rate, cfg.end_lr, cfg.decay_power,
                                             int(cfg.decay_step))
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.learning_rate,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        self.staged = cfg.stage_switch_step is not None
+        named = list(self.model.named_parameters())
+        # one Adam a stage: the SR parameters before the switch, all of them after
+        stages = ([[p for n, p in named if not is_flow_param(n)]] if self.staged else [])
+        self.optimizers = tuple(torch.optim.Adam(ps, lr=cfg.learning_rate, betas=(0.9, 0.999),
+                                                 eps=1e-8)
+                                for ps in stages + [[p for _, p in named]])
+        self.clipped = [p for n, p in named if is_lstm_param(n)] if cfg.model == "drvsr" else []
         self.global_step = 0
         self._started = False
-        print(f"Params num of all: {sum(p.numel() for p in self.model.parameters())}")
+        n_flow = sum(p.numel() for n, p in named if is_flow_param(n))
+        n_all = sum(p.numel() for _, p in named)
+        if n_flow:
+            print(f"params num of flow: {n_flow}")
+            print(f"params num of sr: {n_all - n_flow}")
+        print(f"Params num of all: {n_all}")
+
+    @property
+    def stage(self) -> int:
+        """0 before cfg.stage_switch_step (staged training only), else 1 when
+        staged; 0 for single-stage training."""
+        return int(self.staged and self.global_step >= self.cfg.stage_switch_step)
+
+    @property
+    def optimizer(self) -> torch.optim.Adam:
+        """The Adam the next step applies."""
+        return self.optimizers[self.stage]
 
     # --- train step -----------------------------------------------------
     def step_generator(self, step: int) -> torch.Generator:
@@ -128,19 +182,25 @@ class Trainer:
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
         lr_in, gt = device_augment_and_degrade(batch, generator, self.cfg.producer,
                                                self.cfg.scale)
-        losses = self.loss_fn({"sr": self.model(lr_in, plain=self.plain)}, gt, lr_in)
-        self.optimizer.zero_grad(set_to_none=True)
-        losses["loss"].backward()
+        out = self.model(lr_in, plain=self.plain)
+        losses = self.loss_fn(out if isinstance(out, dict) else {"sr": out}, gt, lr_in)
+        # every gradient is cleared: the SR stage's Adam leaves the flow's unread
+        self.model.zero_grad(set_to_none=True)
+        losses["loss_sr" if self.staged and self.stage == 0 else "loss"].backward()
         self.apply_gradients()
         return {k: v.detach() for k, v in losses.items()}
 
     def apply_gradients(self):
-        """Adam on the parameters' .grad at the learning rate of the global
-        step before its increment."""
+        """The stage's Adam on the parameters' .grad (DRVSR's LSTM gradients
+        clipped first) at the learning rate of the global step before its
+        increment."""
+        optimizer = self.optimizer
+        clip_by_global_norm_([p.grad for p in self.clipped if p.grad is not None],
+                             LSTM_CLIP_NORM)
         lr_now = self.schedule(self.global_step)
-        for group in self.optimizer.param_groups:
+        for group in optimizer.param_groups:
             group["lr"] = lr_now
-        self.optimizer.step()
+        optimizer.step()
         self.global_step += 1
 
     # --- checkpointing --------------------------------------------------
@@ -149,19 +209,24 @@ class Trainer:
 
     def save(self):
         save_checkpoint(self.workdir, {"step": self.global_step, "model": self.model.state_dict(),
-                                       "optimizer": self.optimizer.state_dict()})
+                                       "optimizers": [o.state_dict() for o in self.optimizers]})
         for old in self.checkpoints()[:-KEEP_CHECKPOINTS]:
             os.remove(old)
 
     def restore(self) -> bool:
-        """Load the newest checkpoint, if there is one (reference reload=True).
-        One without Adam state (`import-tf1` writes the model alone, at step
-        0) starts Adam fresh, as JAX's import writes a fresh optimizer state."""
+        """Load the newest checkpoint, if there is one (reference reload=True),
+        with every stage's Adam state.  One without Adam state (`import-tf1`
+        writes the model alone, at step 0) starts each Adam fresh, as JAX's
+        import writes a fresh optimizer state."""
         state = load_newest_checkpoint(self.workdir, self.model, self.device)
         if state is None:
             return False
-        if "optimizer" in state:
-            self.optimizer.load_state_dict(state["optimizer"])
+        saved = state.get("optimizers", [])
+        if saved and len(saved) != len(self.optimizers):
+            raise ValueError(f"{self.workdir}: the checkpoint holds {len(saved)} Adam states, "
+                             f"this configuration trains in {len(self.optimizers)} stages")
+        for optimizer, opt_state in zip(self.optimizers, saved):
+            optimizer.load_state_dict(opt_state)
         self.global_step = int(state["step"])
         return True
 

@@ -65,10 +65,3 @@ def test_eval_logs_the_restored_step(trained):
     with open(os.path.join(save_dir, "pfnl.txt")) as f:
         lines = f.read().splitlines()
     assert len(lines) == 1 and lines[0].startswith('{"Iter": 2 , "PSNR": [')
-
-
-@pytest.mark.parametrize("family,slice_name", [("vespcn", "flow-family training"),
-                                               ("duf", "DUF training")])
-def test_eval_refuses_the_families_the_port_does_not_train(family, slice_name, tmp_path):
-    with pytest.raises(SystemExit, match=slice_name):
-        main(["eval", family, "--save-dir", str(tmp_path), "--device", "cpu"])

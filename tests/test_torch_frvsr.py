@@ -260,10 +260,3 @@ def test_cli_test_frvsr_serves_blur4(served):
     main(["test", "frvsr", "--data", root, "--device", "cpu", "--name", "sr_cli"])
     outs = _pngs(os.path.join(seq, "sr_cli"))
     assert len(outs) == 9 and outs[0].shape == (80, 112, 3)
-
-
-def test_cli_eval_frvsr_refuses(tmp_path):
-    from pfnl_tpu_torch.__main__ import main
-
-    with pytest.raises(SystemExit, match="flow-family training"):
-        main(["eval", "frvsr", "--save-dir", str(tmp_path), "--device", "cpu"])

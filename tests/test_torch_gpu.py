@@ -31,7 +31,8 @@ from pfnl_tpu_torch.ops.losses import charbonnier
 from pfnl_tpu_torch.ops.nonlocal_attn import nonlocal_attention_chunked
 from pfnl_tpu_torch.ops.pfrb_ref import (pfnl_tail_ref, pfrb_a_ref, pfrb_b_ref, pfrb_bwd_a_ref,
                                          pfrb_bwd_b_ref)
-from pfnl_tpu_torch.ops.warp import forward_warp_local_ref, forward_warp_local_spmc
+from pfnl_tpu_torch.ops.warp import (forward_warp_local, forward_warp_local_ref,
+                                     forward_warp_local_spmc, forward_warp_spmc)
 
 pytestmark = pytest.mark.gpu
 
@@ -461,6 +462,81 @@ def test_splat_wrappers_reject_what_the_kernels_do_not_take(gen):
         bounded_splat(im, uv, bound + 1)                       # R beyond the tile's halo
     with pytest.raises(ValueError):
         spmc_splat(im, uv, 4, bound + 1)
+
+
+def _bounded_flows(gen, b, h, w, r):
+    """Flows within [-r, r] (a flow beyond the bound loses taps in the
+    forward that the gather adjoint still reads), the bound met at two
+    corners."""
+    uv = (torch.rand((b, h, w, 2), generator=gen, device="cuda") * 2 - 1) * r
+    uv[0, 0, 0] = torch.tensor([r, -r])
+    uv[-1, -1, -1] = torch.tensor([-r, r])
+    return uv
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,c,r", [("bounded", 1, 2), ("bounded", 3, 1), ("spmc", 1, 2),
+                                      ("spmc", 1, 1)])
+def test_splats_under_grad_launch_their_kernels(gen, dtype, kind, c, r):
+    """forward_warp_local / forward_warp_spmc under autograd on the card:
+    the kernel launches once (BoundedSplat / SpmcSplat), its output is the
+    kernel's, and the gradients of im and uv are plain autograd's through
+    the plain splat; the raw wrapper still raises under grad."""
+    b, h, w = 2, 20, 70
+    im0 = torch.rand((b, h, w, c), generator=gen, device="cuda").to(dtype)
+    uv0 = _bounded_flows(gen, b, h, w, r).to(dtype)
+    shape = (b, h, w, c) if kind == "bounded" else (b, 4 * h, 4 * w, c)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if kind == "bounded":
+        fn, plain, raw = forward_warp_local, forward_warp_local_ref, bounded_splat
+    else:
+        fn = lambda i, u, r: forward_warp_spmc(i, u, 4, r)  # noqa: E731
+        plain = lambda i, u, r: forward_warp_local_spmc(i, u, 4, r)  # noqa: E731
+        raw = lambda i, u, r: spmc_splat(i, u, 4, r)  # noqa: E731
+    outs = {}
+    for path, f in (("kernel", fn), ("plain", plain)):
+        im, uv = im0.clone().requires_grad_(), uv0.clone().requires_grad_()
+        reset_launches()
+        out = f(im, uv, r)
+        assert out.requires_grad
+        out.backward(g)
+        outs[path] = (out.detach(), im.grad, uv.grad, dict(launches))
+    assert outs["kernel"][3] == {f"{kind}_splat": 1} and outs["plain"][3] == {}
+    with torch.no_grad():
+        assert torch.equal(outs["kernel"][0], raw(im0, uv0, r))
+    _assert_close(outs["kernel"][1:3], outs["plain"][1:3], dtype)
+    with pytest.raises(RuntimeError, match="autograd"):
+        raw(im0.clone().requires_grad_(), uv0, r)
+
+
+@pytest.mark.parametrize("family,want", [("vespcn", {"bounded_splat": 1}),
+                                         ("ltdvsr", {"bounded_splat": 1}),
+                                         ("drvsr", {"spmc_splat": 1, "bounded_splat": 1}),
+                                         ("frvsr", {"bounded_splat": 4})])
+def test_flow_family_gradients_kernel_path_match_plain_path(gen, family, want):
+    """One float32 training step of a flow family (FRVSR at 3 frames: K7
+    twice a frame after the first) through K7/K8 and their adjoints against
+    pure autograd on the plain path: the joint loss and every parameter
+    gradient within 1e-3 relative L2."""
+    from pfnl_tpu_torch.train.losses import LOSS_REGISTRY
+
+    kw = {"num_frames": 3, "mf": 16, "num_blocks": 2} if family == "frvsr" else {}
+    model = seeded_model(family, torch.float32, 0, **kw).train()
+    t = model.num_frames
+    x = torch.rand((2, t, 16, 20, 3), generator=gen, device="cuda")
+    gt = torch.rand((2, t if family == "frvsr" else 1, 64, 80, 3), generator=gen, device="cuda")
+    res = {}
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss = LOSS_REGISTRY[family](model(x, plain=plain), gt, x)["loss"]
+        loss.backward()
+        res[plain] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()},
+                      dict(launches))
+    assert res[False][2] == want and res[True][2] == {}
+    assert abs(res[False][0] - res[True][0]) <= 1e-5 * abs(res[True][0])
+    for k, gp in res[True][1].items():
+        assert ((res[False][1][k] - gp).norm() / gp.norm()).item() <= 1e-3, k
 
 
 def _duf_block_params(gen, f, g, mode):
