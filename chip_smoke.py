@@ -123,11 +123,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      launches a batch (EVAL_LAUNCHES), and for the Y families one frame's
      SSIM on the card (`compute_ssim_batch`) within SSIM_TOL of the float64
      host SSIM.
+ 11. DUF-52L training at the duf preset of config.py (batch 11, 7 frames,
+     LR 32 / GT 128, the "double" producer, float32, seeded weights) on four
+     seeded 12-frame 448x448 clips in memory through TrainPipeline:
+     a. kernel 10's float32 entry at the training shape against F.conv3d
+        (ms, bound, error) at four growth convs; then
+        one fixed batch in training mode: conv3d_impl="pallas" (kernel 10
+        forward under autograd, `Conv3x3x3`, once per growth conv) against
+        pure autograd on the plain path: the Huber loss, every gradient
+        within GRAD_TOL or NOISE_FACTOR times what float32 alone moves it
+        (the batch order reversed on either path, PyTorch's native conv in
+        place of cuDNN's on the plain path), whichever is larger (the
+        biases a training BatchNorm cancels, 0 in exact arithmetic, over
+        the median gradient norm), and the five BatchNorm buffers after the
+        step within BN_BUFFER_TOL;
+     b. Trainer.fit on the default path (conv3d_impl auto: cuDNN, no
+        kernel in training) and on "pallas" (kernel 10): launches a step,
+        finite losses, steady steps/s, peak memory, the device's busy share;
+     c. the default path's trained model through the Evaluator in eval mode
+        (kernel 9 24 times a batch, on the moving statistics training made,
+        the model given back in training mode), then one window's backbone
+        output on the float32 and bf16 kernel paths against the float32
+        plain path (BACKBONE_TOL).
+ 12. EasyFlow and FlowNet: a. EasyFlowTrainer at the reference's config
+     (batch 20, crop 100, 7 frames) on seeded in-memory clips, summaries
+     off: steps/s with its host sampling, the busy share; b. its last
+     checkpoint into a VESPCN (`restore_easyflow_params`) whose Trainer.fit
+     takes 3 steps (kernel 7 once a step; the pre-trained flow held through
+     the SR-only stage); c. FlowNetS, FlowNetC and WarpConfidence (eval
+     mode) forward at FlowNet's published 384x512, batch 8: ms, peak
+     memory, and the first pair against the same weights on the CPU.
 
 The second-to-last line is a JSON summary of the kernels: launches from
 the path that runs each (phase 4 plus 5c for kernels 1-6, 6 and 8 for
 7, 6 for 8, 7b for 9, 7c for 10; and phase 9b's kernel path for 7 and 8,
-phase 10 for 1-4 and 7-9); errors and times at the shape named in
+phase 10 for 1-4 and 7-9, 11b's kernel-10 path for 10, 11c for 9, 12b
+for 7); errors and times at the shape named in
 TIMED (bf16 but for kernels 5 and 6, float32 at the training shape);
 `bound_ms`, the least time the card could take for the same work (the larger of the
 bytes each call must move over 3.35 TB/s and its operations over the
@@ -227,6 +258,14 @@ EVAL_LAUNCHES = {"pfnl": {"nonlocal_flash": 1, "pfrb_a": 20, "pfrb_b": 20, "pfnl
                  "ltdvsr": {"bounded_splat": 1}, "drvsr": {"spmc_splat": 1, "bounded_splat": 1},
                  "frvsr": {"bounded_splat": 18}, "duf": {"duf_block": 24}}
 SSIM_TOL = 1e-4                         # phase 10: card SSIM of a frame vs float64 on the host
+DUF_WARM, DUF_STEPS = 3, 8              # phase 11b: steps before / inside the timed window
+BN_BUFFER_TOL = 1e-5                    # phase 11a: max|k - p| / max|p| of each BatchNorm buffer
+# phase 11a: DUF's training gradients against plain autograd on GRAD_BATCHES batches, in
+# units of the most that float32 alone moves them on the plain path
+NOISE_FACTOR, GRAD_BATCHES = 3, 3
+EF_BATCH, EF_CROP, EF_FRAMES = 20, 100, 7   # phase 12a: the reference's EasyFlow config
+EF_WARM, EF_STEPS = 3, 8                # phase 12a: steps before / inside the timed run
+FLOWNET_BATCH, FLOWNET_HW = 8, (384, 512)   # phase 12c: FlowNet's published input size
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
 TF32_ENTRIES = ("pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
@@ -1311,6 +1350,33 @@ def phase_frvsr_serving(smi, lr_frames, lrs):
     return counts
 
 
+def _busy_ms(step_fn, batches, top=3):
+    """The device's kernel time a step by torch.profiler over pre-fetched
+    batches, and the host operators with the most self CPU time, and the
+    device time's split by kind of kernel (profile_serving's categories)."""
+    from pfnl_tpu_torch.infer.profile_serving import _category
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            step_fn(b)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / len(batches)
+    split = {}
+    for e in device:
+        split[_category(e.key)] = split.get(_category(e.key), 0) + e.self_device_time_total
+    total = max(sum(split.values()), 1e-9)
+    host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:top]
+    return busy, ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / len(batches):.3f} ms "
+                           f"({e.count // len(batches)} calls)" for e in host) + (
+        "; device time by kind: " + ", ".join(f"{k} {v / total:.1%}" for k, v in
+                                              sorted(split.items(), key=lambda kv: -kv[1])))
+
+
 def in_memory_set(tag, n_seqs, frames, h, w, seed):
     """Seeded clips as uint8 truth/ frames and blur4/ frames degraded on the
     card, in memory: (MemoryFrames, [Sequence])."""
@@ -1419,7 +1485,6 @@ def _flow_fit(family, cfg, pipe, plain, card):
     from pfnl_tpu_torch.infer.profile_serving import seeded_model
     from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
     from pfnl_tpu_torch.train.trainer import Trainer
-    from torch.profiler import ProfilerActivity, profile
 
     path = "plain" if plain else "kernels"
     tr = Trainer(cfg, model=seeded_model(family, torch.float32, SEED,
@@ -1453,22 +1518,11 @@ def _flow_fit(family, cfg, pipe, plain, card):
     step_ms = wall * 1e3 / FLOW_STEPS
     busy = ""
     if not plain:
-        batches = [pipe.get_batch() for _ in range(3)]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for b in batches:
-                tr.step(b, tr.step_generator(tr.global_step))
-            torch.cuda.synchronize()
-        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / len(batches)
-        host_ops = sorted((e for e in prof.key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CPU),
-                          key=lambda e: -e.self_cpu_time_total)[:5]
+        busy_ms, host_ops = _busy_ms(lambda b: tr.step(b, tr.step_generator(tr.global_step)),
+                                     [pipe.get_batch() for _ in range(3)], top=5)
         busy = (f"; device busy {busy_ms:.3f} ms a step ({busy_ms / step_ms:.1%} of the steady "
-                f"step; torch.profiler kernel time over {len(batches)} pre-fetched steps); host "
-                f"ops by self CPU time a step (under the profiler): " + ", ".join(
-                    f"{e.key} {e.self_cpu_time_total / 1e3 / len(batches):.3f} ms "
-                    f"({e.count // len(batches)} calls)" for e in host_ops))
+                f"step; torch.profiler kernel time over 3 pre-fetched steps); host ops by self "
+                f"CPU time a step (under the profiler): {host_ops}")
     switch = ("single stage" if cfg.stage_switch_step is None
               else f"the switch at step {cfg.stage_switch_step}")
     print(f"[9b {family}] {path}: {FLOW_STEPS} steps after {FLOW_WARM} ({switch}) in {wall:.3f} s: steady {FLOW_STEPS / wall:.3f} steps/s "
@@ -1563,6 +1617,365 @@ def phase_eval(card):
     return total
 
 
+def _duf_gradients(cfg, batch, card):
+    """11a: one fixed batch through DUF-52L in training mode from the same
+    weights and BatchNorm buffers: kernel 10 under autograd (`Conv3x3x3`)
+    against pure autograd on the plain path: the loss, every gradient, and
+    the five buffers after the step.  A training BatchNorm's backward turns
+    float32 rounding into gradient differences of about 1e-3 between any
+    two float32 evaluations of the same step, so each gradient is held
+    within GRAD_TOL or within NOISE_FACTOR times the most that float32
+    alone moves it here, whichever is larger, taken from the plain path
+    only: what reversing the batch order does there (the same function
+    summed in another order) and what PyTorch's native conv in place of
+    cuDNN's does (another float32 conv, as kernel 10 is).  The kernel
+    path's own reading with the batch reversed is printed beside the limit
+    and kept out of it, so that a fault that depends on where a sample sits
+    in the batch cannot widen its own limit.  The biases a BatchNorm
+    cancels, 0 in exact arithmetic, are measured over the median gradient
+    norm."""
+    from pfnl_tpu_torch.data.pipeline import device_augment_and_degrade
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.models.duf import bn_cancelled_bias
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.losses import LOSS_REGISTRY
+
+    model = seeded_model("duf", torch.float32, SEED, conv3d_impl="pallas").train()
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lr_in, gt = device_augment_and_degrade({k: torch.as_tensor(v).cuda() for k, v in batch.items()},
+                                           gen, cfg.producer, cfg.scale)
+    res = {}
+    for path in ("warm-up", "kernels", "plain", "kernels reversed", "plain reversed",
+                 "plain, no cuDNN"):
+        x, y = (lr_in.flip(0), gt.flip(0)) if path.endswith("reversed") else (lr_in, gt)
+        model.load_state_dict(state0)
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.backends.cudnn.flags(enabled=path != "plain, no cuDNN", allow_tf32=False):
+            out = model(x, plain=path.startswith("plain"))
+            loss = LOSS_REGISTRY["duf"]({"sr": out}, y, x)["loss"]
+            loss.backward()
+        end.record()
+        torch.cuda.synchronize()
+        res[path] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()},
+                     {k: b.clone() for k, b in model.named_buffers()},
+                     {k: launches[k] for k in KERNELS if launches[k]}, start.elapsed_time(end))
+    want = {"duf_dense": len(model.G.modes)}
+    if res["kernels"][3] != want or res["plain"][3]:
+        fail(f"duf training: launches, kernel path {res['kernels'][3]} (want {want}), plain "
+             f"{res['plain'][3]} (want none)")
+    grads = {path: r[1] for path, r in res.items()}
+    median = float(np.median([g.norm().item() for g in grads["plain"].values()]))
+    err, bound, floor, k_rev = {}, {}, {}, {}
+    for k, g in grads["plain"].items():
+        scale = median if bn_cancelled_bias(k) else g.norm().item()
+        err[k] = (grads["kernels"][k] - g).norm().item() / scale
+        floor[k] = max((grads["plain reversed"][k] - g).norm().item(),
+                       (grads["plain, no cuDNN"][k] - g).norm().item()) / scale
+        k_rev[k] = (grads["kernels reversed"][k] - grads["kernels"][k]).norm().item() / scale
+        bound[k] = max(GRAD_TOL, NOISE_FACTOR * floor[k])
+    worst = max(err, key=lambda k: err[k] / bound[k])
+    need = max(err, key=lambda k: err[k] / floor[k] if err[k] > GRAD_TOL else 0.0)
+    buf = {k: ((res["kernels"][2][k] - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+           for k, b in res["plain"][2].items()}
+    worst_buf = max(buf, key=buf.get)
+    steps = {b.item() for k, b in res["kernels"][2].items() if k.endswith("local_step")}
+    loss_k, loss_p = res["kernels"][0], res["plain"][0]
+    print(f"[11a duf train] DUF-52L, batch {cfg.batch_size}, {cfg.num_frames} frames, LR "
+          f"{cfg.in_size}x{cfg.in_size}, float32, BatchNorm in training mode: launches {want}; "
+          f"Huber loss kernels {loss_k:.8f}, plain {loss_p:.8f}; ||g_k - g_p|| / ||g_p|| over "
+          f"{len(err)} parameters: median {float(np.median(list(err.values()))):.3e}, worst "
+          f"against its limit {err[worst]:.3e} ({worst}; limit {bound[worst]:.3e}, the kernel "
+          f"path reversed moves it by {k_rev[worst]:.3e}); float32 alone on the plain path (the "
+          f"batch reversed, native conv for cuDNN's) moves them by a median "
+          f"{float(np.median(list(floor.values()))):.3e}, at most {max(floor.values()):.3e}; of "
+          f"the gradients beyond {GRAD_TOL:.0e}, the most error over that floor is "
+          f"{err[need] / floor[need] if err[need] > GRAD_TOL else 0.0:.3f} ({need}; "
+          f"NOISE_FACTOR {NOISE_FACTOR}); the kernel path reversed moves them by a median "
+          f"{float(np.median(list(k_rev.values()))):.3e}, at most {max(k_rev.values()):.3e} (the "
+          f"{sum(map(bn_cancelled_bias, err))} biases a BatchNorm cancels over the median ||g||); "
+          f"BatchNorm buffers after the step: worst max|k - p| / max|p| {buf[worst_buf]:.3e} "
+          f"({worst_buf}; tolerance {BN_BUFFER_TOL:.0e}), local_step {sorted(steps)}; "
+          f"forward+backward {res['kernels'][4]:.3f} ms kernels, {res['plain'][4]:.3f} ms plain, "
+          f"{res['plain, no cuDNN'][4]:.3f} ms without cuDNN on {card}", flush=True)
+    if (err[worst] > bound[worst] or buf[worst_buf] > BN_BUFFER_TOL or steps != {1.0}
+            or abs(loss_k - loss_p) > 1e-5 * abs(loss_p)):
+        fail("duf training: the kernel-10 path disagrees with plain autograd")
+    del model, res, grads
+    torch.cuda.empty_cache()
+
+
+def _duf_train_convs(cfg, card):
+    """11a: kernel 10's float32 entry at the training shape [B,7,LR,LR,F]
+    (batch 11, LR 32) against F.conv3d (cuDNN, TF32 off) on the same
+    inputs, at the first, a middle and the last SAME-T growth conv and the
+    last VALID-T one: ms beside the float32 bound, and the error."""
+    from pfnl_tpu_torch.ops.cuda.duf_dense import duf_dense
+    from pfnl_tpu_torch.ops.duf_ref import conv3x3x3_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    hw = cfg.in_size
+    for f, pad_t, t in ((64, True, 7), (224, True, 7), (384, True, 7), (432, False, 3)):
+        x = _rand((cfg.batch_size, t, hw, hw, f), gen, dist="uniform")
+        w = _rand((3, 3, 3, f, 16), gen, scale=(2 / (27 * f)) ** 0.5)
+        with torch.inference_mode():
+            ref = conv3x3x3_ref(x, w, pad_t)
+            err = ((duf_dense(x, w, pad_t) - ref).abs().max() / ref.abs().max()).item()
+            k_ms, p_ms = _timed(lambda: duf_dense(x, w, pad_t), lambda: conv3x3x3_ref(x, w, pad_t))
+        t_out = t if pad_t else t - 2
+        flop = 2 * 27 * f * 16 * cfg.batch_size * t_out * hw * hw
+        b_ms, b_by = bound(flop, nbytes(x, w, ref), "float32")
+        print(f"[11a duf train] kernel 10 float32 at [{cfg.batch_size},{t},{hw},{hw},{f}] -> G 16 "
+              f"({'SAME' if pad_t else 'VALID'}-T): {k_ms:.4f} ms, F.conv3d {p_ms:.4f} ms "
+              f"({k_ms / p_ms:.2f}x), bound {b_ms:.4f} ms ({b_by}); max|k - p| / max|p| {err:.2e} "
+              f"(tolerance {TOL['float32']:.0e}) on {card}", flush=True)
+        if err > TOL["float32"]:
+            fail(f"kernel 10 float32 at F {f}: {err} off F.conv3d")
+
+
+def _duf_fit(cfg, pipe, impl, card):
+    """11b: Trainer.fit at the duf preset: launches a step, finite losses,
+    steady steps/s, peak memory and the device's busy share."""
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, model=seeded_model("duf", torch.float32, SEED, conv3d_impl=impl).train(),
+                 device="cuda")
+    logged = []
+    tr.fit(pipe, max_steps=DUF_WARM, save_every=10**9, log_every=10**9, print_fn=logged.append)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.fit(pipe, max_steps=DUF_WARM + DUF_STEPS, save_every=10**9, log_every=2,
+           print_fn=logged.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(line.rsplit("loss:", 1)[1]) for line in logged if "loss:" in line]
+    finite = all(np.isfinite(losses)) and all(torch.isfinite(p).all()
+                                             for p in tr.model.parameters())
+    if not finite or not losses:
+        fail(f"duf {impl}: non-finite or missing losses {losses}")
+    want = {k: 0 for k in KERNELS}
+    want["duf_dense"] = len(tr.model.G.modes) * DUF_STEPS if impl == "pallas" else 0
+    if counts != want:
+        fail(f"duf {impl}: launch counts {counts} != {want} over {DUF_STEPS} steps")
+    step_ms = wall * 1e3 / DUF_STEPS
+    busy, host = _busy_ms(lambda b: tr.step(b, tr.step_generator(tr.global_step)),
+                          [pipe.get_batch() for _ in range(3)])
+    print(f"[11b duf fit] {impl}: {DUF_STEPS} steps after {DUF_WARM} in {wall:.3f} s: steady "
+          f"{DUF_STEPS / wall:.3f} steps/s ({step_ms:.3f} ms a step); peak memory "
+          f"{peak / 2**30:.2f} GiB; losses {losses}; launches per step "
+          f"{ {k: v / DUF_STEPS for k, v in counts.items() if v} }; device busy {busy:.3f} ms a "
+          f"step ({busy / step_ms:.1%} of the steady step; torch.profiler over 3 pre-fetched "
+          f"steps); host ops a step: {host} on {card}", flush=True)
+    return tr, counts, DUF_STEPS / wall
+
+
+def _duf_eval_after_training(cfg, model, card):
+    """11c: the model Trainer.fit trained (conv3d_impl auto), through the
+    Evaluator in eval mode: kernel 9 on the moving statistics that training
+    made; then one window's backbone output on the kernel paths against the
+    float32 plain path."""
+    from pfnl_tpu_torch.eval.evaluator import Evaluator
+    from pfnl_tpu_torch.models import DUF
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+
+    in_h, in_w = cfg.eval_in_size
+    mem, seqs = in_memory_set("dufeval", 4, 20, in_h * 4 + 16, in_w * 4 + 16, SEED + 41)
+    steps = {b.item() for k, b in model.named_buffers() if k.endswith("local_step")}
+    ev = Evaluator(cfg, model, source=mem, sequences=seqs)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    psnr = ev.run(0, print_fn=lambda *a: None)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: launches[k] for k in KERNELS}
+    want = {k: 0 for k in KERNELS}
+    want["duf_block"] = len(model.G.modes)
+    if counts != want or not model.training or not np.all(np.isfinite(psnr)):
+        fail(f"duf eval after training: launches {counts} (want {want}), training mode given "
+             f"back {model.training}, PSNR {psnr}")
+    lr, _ = next(ev._windows())
+    x = torch.from_numpy(lr[None]).cuda()
+    model.eval()
+    model16 = DUF(dtype=torch.bfloat16).cuda().eval()
+    model16.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        ref = model.G.features(x, plain=True)
+        feats = {"float32": model.G.features(x), "bfloat16": model16.G.features(x.bfloat16())}
+    model.train()
+    rel = {k: _rel(f, ref) for k, f in feats.items()}
+    print(f"[11c duf eval] after {sorted(steps)} training steps (local_step): Evaluator, 4 "
+          f"windows at {in_h}x{in_w} in {wall:.3f} s, PSNR {psnr.tolist()}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }; backbone output {tuple(ref.shape)} on "
+          f"the moving statistics vs the f32 plain path: rel L2 float32 kernels "
+          f"{rel['float32']:.3e} (tolerance {BACKBONE_TOL['float32']:.0e}), bf16 kernels "
+          f"{rel['bfloat16']:.3e} (tolerance {BACKBONE_TOL['bfloat16']:.0e}); rms "
+          f"{ref.pow(2).mean().sqrt().item():.3e} on {card}", flush=True)
+    if any(rel[k] > BACKBONE_TOL[k] for k in rel):
+        fail("duf eval after training: kernel 9 disagrees with the f32 plain path")
+    del model16
+    return counts
+
+
+def phase_duf_training(card):
+    """11: DUF-52L training at the duf preset (batch 11, 7 frames, LR 32 /
+    GT 128, the "double" producer, float32, TF32 off) on four seeded
+    12-frame clips in memory: 11a the kernel-10 path's gradients and
+    BatchNorm buffers against plain autograd on GRAD_BATCHES batches, 11b
+    Trainer.fit on the default path (cuDNN) and on conv3d_impl="pallas"
+    (kernel 10), 11c the Evaluator on the trained model (kernel 9)."""
+    from pfnl_tpu_torch.config import preset
+    from pfnl_tpu_torch.data.pipeline import TrainPipeline
+
+    n_seqs, frames, hw = FLOW_CLIP
+    mem, seqs = in_memory_set("duftrain", n_seqs, frames, hw, hw, SEED + 40)
+    cfg = preset("duf", reload=False, save_dir="pfnl_tpu_torch/build/smoke_ckpt")
+    pipe = TrainPipeline(seqs, cfg.producer, cfg.num_frames, cfg.in_size, cfg.scale,
+                         cfg.batch_size, seed=cfg.seed, num_threads=cfg.host_threads,
+                         prefetch=cfg.prefetch, source=mem)
+    try:
+        _duf_train_convs(cfg, card)
+        for _ in range(GRAD_BATCHES):
+            _duf_gradients(cfg, pipe.get_batch(), card)
+        tr, _, rate = _duf_fit(cfg, pipe, "auto", card)
+        pallas_tr, dense_counts, pallas_rate = _duf_fit(cfg, pipe, "pallas", card)
+    finally:
+        pipe.close()
+    del pallas_tr
+    torch.cuda.empty_cache()
+    block_counts = _duf_eval_after_training(cfg, tr.model, card)
+    print(f"[11 duf] steady steps/s: default (cuDNN) {rate:.3f}, kernel 10 {pallas_rate:.3f} "
+          f"(batch {cfg.batch_size}, float32, TF32 off) on {card}", flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    return {k: dense_counts[k] + block_counts[k] for k in dense_counts}
+
+
+def _flownet_forward(name, model, a, b, card):
+    """12c: one forward at FlowNet's published input on the card (ms by CUDA
+    events, peak memory) and its first pair against the same weights on
+    the CPU."""
+    with torch.no_grad():
+        ref = model(a[:1].cpu(), b[:1].cpu())
+    model.cuda()
+    with torch.inference_mode():
+        out = model(a, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(lambda: model(a, b))
+        peak = torch.cuda.max_memory_allocated()
+    err = ((out[:1].cpu() - ref).abs().max() / ref.abs().max()).item()
+    print(f"[12c {name}] batch {a.shape[0]} at {a.shape[1]}x{a.shape[2]}, float32: output "
+          f"{tuple(out.shape)}, {ms:.3f} ms a forward, peak memory {peak / 2**30:.2f} GiB; "
+          f"the first pair vs the CPU: max|card - cpu| / max|cpu| {err:.3e} (tolerance "
+          f"{TOL['float32']:.0e}) on {card}", flush=True)
+    if err > TOL["float32"] or not torch.isfinite(out).all():
+        fail(f"{name}: the card's forward disagrees with the CPU's")
+
+
+def phase_easyflow_flownet(card):
+    """12: EasyFlow pre-training at the reference's config (batch 20, crop
+    100, 7 frames) on seeded in-memory clips, summaries off (12a); its
+    checkpoint into a VESPCN that Trainer.fit trains 3 steps (12b);
+    FlowNet-S, FlowNet-C and WarpConfidence forward at 384x512, batch 8
+    (12c)."""
+    import glob
+    import os
+
+    from pfnl_tpu_torch.config import preset
+    from pfnl_tpu_torch.data.pipeline import TrainPipeline
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.models.flownet import FlowNetC, FlowNetS, WarpConfidence
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.easyflow_trainer import EasyFlowTrainer, restore_easyflow_params
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    n_seqs, frames, hw = FLOW_CLIP
+    mem, seqs = in_memory_set("easyflow", n_seqs, frames, hw, hw, SEED + 50)
+    save_dir = "pfnl_tpu_torch/build/smoke_ckpt/easyflow"
+    for old in glob.glob(os.path.join(save_dir, "step_*.pt")):
+        os.remove(old)
+    ef = EasyFlowTrainer(save_dir=save_dir, num_frames=EF_FRAMES, crop_size=EF_CROP,
+                         batch_size=EF_BATCH, seed=SEED, device="cuda", source=mem,
+                         sequences=[s.truth for s in seqs])
+    logged = []
+    quiet = dict(print_fn=logged.append, summary_every=10**9, image_summary_every=0)
+    ef.train(max_steps=EF_WARM, **quiet)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ef.train(max_steps=EF_STEPS, **quiet)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    trained = {k: v.clone() for k, v in ef.model.state_dict().items()}  # the last checkpoint's
+    losses = [float(line.rsplit("loss = ", 1)[1].split()[0]) / 100 for line in logged]
+    if not losses or not all(np.isfinite(losses)):
+        fail(f"easyflow: non-finite or missing losses {losses}")
+    rng = np.random.default_rng(SEED)
+    optimizer = torch.optim.Adam(ef.model.parameters(), lr=1e-6)
+    busy, host = _busy_ms(lambda b: ef.step(optimizer, 0, b),
+                          [ef.sample_batch(rng, ef._sequences()) for _ in range(3)])
+    step_ms = wall * 1e3 / EF_STEPS
+    print(f"[12a easyflow] batch {EF_BATCH}, crop {EF_CROP}, {EF_FRAMES} frames, float32: "
+          f"{EF_STEPS} steps of EasyFlowTrainer.train (host sampling included) after "
+          f"{EF_WARM} in {wall:.3f} s: {EF_STEPS / wall:.3f} steps/s ({step_ms:.3f} ms a step); "
+          f"peak memory {peak / 2**30:.2f} GiB; losses {losses}; device busy {busy:.3f} ms a "
+          f"step ({busy / step_ms:.1%} of a step); host ops a step: {host} on {card}",
+          flush=True)
+
+    cfg = preset("vespcn", reload=False, save_dir="pfnl_tpu_torch/build/smoke_ckpt")
+    model = restore_easyflow_params(save_dir, seeded_model("vespcn", torch.float32, SEED).train())
+    flow = {k: v.clone() for k, v in model.easyflow.state_dict().items()}
+    if any(not torch.equal(v, trained[k]) for k, v in flow.items()):
+        fail("easyflow: VESPCN's easyflow is not the pre-trained flow")
+    pipe = TrainPipeline(seqs, cfg.producer, cfg.num_frames, cfg.in_size, cfg.scale,
+                         cfg.batch_size, seed=cfg.seed, num_threads=cfg.host_threads,
+                         prefetch=cfg.prefetch, source=mem)
+    tr = Trainer(cfg, model=model, device="cuda")
+    logged = []
+    reset_launches()
+    try:
+        tr.fit(pipe, max_steps=3, save_every=10**9, log_every=1, print_fn=logged.append)
+    finally:
+        pipe.close()
+    torch.cuda.synchronize()
+    counts = {k: launches[k] for k in KERNELS}
+    losses = [float(line.rsplit("loss:", 1)[1]) for line in logged if "loss:" in line]
+    held = all(torch.equal(v, model.easyflow.state_dict()[k]) for k, v in flow.items())
+    print(f"[12b easyflow -> vespcn] restore_easyflow_params, then Trainer.fit 3 steps (stage "
+          f"{tr.stage}, before the switch at {cfg.stage_switch_step}: the pre-trained flow held "
+          f"{held}): losses {losses}; launches { {k: v for k, v in counts.items() if v} } on "
+          f"{card}", flush=True)
+    want = {k: 0 for k in KERNELS}
+    want["bounded_splat"] = 3
+    if not losses or not all(np.isfinite(losses)) or counts != want or not held:
+        fail(f"easyflow -> vespcn: losses {losses}, launches {counts} (want {want}), flow held "
+             f"{held}")
+    del tr, model, ef
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    shape = (FLOWNET_BATCH,) + FLOWNET_HW
+    rgb = [torch.rand(shape + (3,), generator=gen, device="cuda") for _ in range(2)]
+    for name, cls, inputs in (("FlowNetS", FlowNetS, rgb), ("FlowNetC", FlowNetC, rgb),
+                              ("WarpConfidence", WarpConfidence, [t[..., :1] for t in rgb])):
+        model = cls(generator=torch.Generator().manual_seed(SEED)).eval()
+        _flownet_forward(name, model, *inputs, card)
+        del model
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -1590,6 +2003,8 @@ def main():
     frvsr_counts = phase_frvsr_serving(smi, lr_frames, lrs)
     flow_counts = phase_flow_training(smi)
     eval_counts = phase_eval(smi)
+    duf_train_counts = phase_duf_training(smi)
+    easyflow_counts = phase_easyflow_flownet(smi)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
@@ -1597,9 +2012,10 @@ def main():
         fail(f"the port loaded JAX-side modules: {leaked[:5]}")
 
     path_launches = {k: counts[k] + train_counts[k] + y_counts[k] + frvsr_counts[k]
-                     + flow_counts[k] + eval_counts[k] for k in TPU_KERNEL}
-    path_launches.update(duf_block=duf_counts["duf_block"] + eval_counts["duf_block"],
-                         duf_dense=pallas_counts["duf_dense"])
+                     + flow_counts[k] + eval_counts[k] + easyflow_counts[k] for k in TPU_KERNEL}
+    path_launches.update(duf_block=duf_counts["duf_block"] + eval_counts["duf_block"]
+                         + duf_train_counts["duf_block"],
+                         duf_dense=pallas_counts["duf_dense"] + duf_train_counts["duf_dense"])
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],
                     launches=path_launches[k], **{f: results[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -7,7 +7,7 @@
     python -m pfnl_tpu_torch eval {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr,duf} [--save-dir D]
         [--eval-list F] [--eval-in-size 128x240] [--compute-dtype float32|bfloat16]
         [--device cuda]
-    python -m pfnl_tpu_torch train {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr} --train-list F
+    python -m pfnl_tpu_torch train {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr,duf} --train-list F
         [--eval-list F] [--eval-in-size 128x240] [--steps N] [--in-size 32] [--batch-size 16] [--save-dir D]
         [--save-every 500] [--compute-dtype float32|bfloat16] [--no-eval]
         [--device cuda]
@@ -36,9 +36,10 @@ output frame; FRVSR: RGB PSNR per frame of its 10-frame windows).
 
 `train` trains from the sequences of a filelist (the family's paper config
 by default, e.g. PFNL batch 16, LR crop 32, 7 frames; float32; the flow
-families staged at their `stage_switch_step`), saving checkpoints and the
-eval log (`<model>.txt`) under `--save-dir`, and resuming from its newest
-checkpoint.  DUF does not train in the port yet.
+families staged at their `stage_switch_step`; DUF-52L batch 11, LR crop 32,
+its BatchNorms in training mode), saving checkpoints and the eval log
+(`<model>.txt`) under `--save-dir`, and resuming from its newest
+checkpoint.
 
 `import-tf1` reads the authors' TF1 checkpoint (a `PREFIX` with its
 `.index` and `.data-*` files, no TensorFlow needed; for DUF also the
@@ -64,9 +65,6 @@ import sys
 import torch
 
 from pfnl_tpu_torch.models import MODEL_REGISTRY
-
-# the families `train` takes: every one but DUF, whose training is not ported
-TRAINED = ["pfnl", "vespcn", "mcresnet", "ltdvsr", "drvsr", "frvsr"]
 
 
 def _hw(text: str) -> tuple:
@@ -106,7 +104,7 @@ def _parser():
     e.add_argument("--device", default="cuda")
 
     r = sub.add_parser("train", help="train from a filelist of sequence dirs")
-    r.add_argument("model", choices=TRAINED)
+    r.add_argument("model", choices=sorted(MODEL_REGISTRY))
     r.add_argument("--train-list", default=None)
     r.add_argument("--eval-list", default=None)
     r.add_argument("--eval-in-size", type=_hw, default=None, help="HxW of the LR eval crops")

@@ -23,14 +23,17 @@ accumulator (`biased_mean`, `biased_var`, decay 0.999) and a step count
 (`local_step`) beside each stat, the stored stat being biased / (1 -
 0.999^t), so that after one update it equals the batch stat.  All five
 `batch_stats` entries are buffers under flax's names, so a flax checkpoint
-loads as it is (utils/weights.py); this slice serves only, and training
-mode raises.
+loads as it is (utils/weights.py).  A training-mode forward (`.train()`,
+JAX's `is_train=True`) normalises by the batch statistics, gradients
+flowing through them, and updates the five buffers once; an eval-mode
+forward reads the moving statistics and updates nothing.
 
 Parameters keep flax's names and layouts (`G.conv1.W` DHWIO, `G.Rbn3a.gamma`,
 ...), float32, cast to the activation dtype at use.
 """
 
 import math
+import re
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +58,14 @@ def he_trunc_normal(shape, generator=None) -> torch.Tensor:
     std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
     return nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2 * std, b=2 * std,
                                  generator=generator)
+
+
+def bn_cancelled_bias(name: str) -> bool:
+    """Whether the DUF parameter `name` is a bias whose gradient is 0 in
+    exact arithmetic in training: conv1's and each dense block's convs'
+    outputs reach the loss only through training-mode BatchNorms, which
+    remove any constant, so float32 leaves only rounding in them."""
+    return re.fullmatch(r"G\.(conv1|Rconv\d+[ab])\.b", name) is not None
 
 
 class Conv3D(nn.Module):
@@ -84,8 +95,18 @@ class Conv3D(nn.Module):
 
 
 class RefBatchNorm(nn.Module):
-    """The reference's moving-average BN in eval mode: gamma * (x - mean) *
-    rsqrt(var + 1e-3) + beta in float32, cast back to x's dtype."""
+    """The reference's moving-average BN: gamma * (x - mean) * rsqrt(var +
+    1e-3) + beta in float32, cast back to x's dtype.
+
+    Training mode takes mean and the population variance (ddof 0, as
+    jnp.var) in float32 over every axis but the channel, and gradients flow
+    through both.  It then updates the buffers, detached, as TF's
+    zero_debias moving averages: biased <- biased * d + stat * (1 - d) with
+    d = 0.999, local_step <- local_step + 1, moving = biased / (1 - d^t),
+    the power in float32 (pfnl_tpu/models/duf.py:137-159).  Eval mode reads
+    moving_mean and moving_variance, which start at 0 as in the reference."""
+
+    decay = 0.999
 
     def __init__(self, features: int):
         super().__init__()
@@ -97,11 +118,21 @@ class RefBatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(
-                "DUF's training-mode BatchNorm (batch statistics, zero_debias updates) comes "
-                "with DUF training; call .eval() to serve")
-        inv = torch.rsqrt(self.moving_variance + 1e-3)
-        return (self.gamma * (x.float() - self.moving_mean) * inv + self.beta).to(x.dtype)
+            xf = x.float()
+            axes = tuple(range(x.dim() - 1))
+            mean, var = xf.mean(axes), xf.var(axes, unbiased=False)
+            with torch.no_grad():
+                d = self.decay
+                self.biased_mean.copy_(self.biased_mean * d + mean * (1 - d))
+                self.biased_var.copy_(self.biased_var * d + var * (1 - d))
+                self.local_step.add_(1.0)
+                debias = 1.0 - torch.pow(torch.full_like(self.local_step, d), self.local_step)
+                self.moving_mean.copy_(self.biased_mean / debias)
+                self.moving_variance.copy_(self.biased_var / debias)
+        else:
+            mean, var = self.moving_mean, self.moving_variance
+        inv = torch.rsqrt(var + 1e-3)
+        return (self.gamma * (x.float() - mean) * inv + self.beta).to(x.dtype)
 
     def folded(self):
         """The eval affine (scale, offset): s * x + o == BN(x)."""
@@ -113,11 +144,13 @@ class FRNet(nn.Module):
     """The dense 3-D backbone and its two heads (reference model/nets.py).
 
     conv3d_impl keeps the JAX field's values: "xla" the plain path, "fused"
-    kernel 9 for the dense blocks, "pallas" kernel 10 for every padded
-    3x3x3 conv, "auto" kernel 9 on a CUDA tensor when no gradient is being
-    recorded (JAX: "fused" on the accelerator when not training) and the
-    plain path otherwise.  plain=True takes the plain path whatever the
-    field says."""
+    kernel 9 for the dense blocks (eval mode only: it folds the moving
+    statistics), "pallas" kernel 10 for every padded 3x3x3 conv, "auto"
+    kernel 9 on a CUDA tensor in eval mode (JAX: "fused" on the accelerator
+    when not `is_train`) when no gradient is being recorded (kernel 9 has
+    no backward), and the plain path otherwise: training takes cuDNN's
+    F.conv3d, as JAX's training takes XLA.  plain=True takes the plain path
+    whatever the field says."""
 
     def __init__(self, layers: int = 52, scale: int = 4, conv3d_impl: str = "auto",
                  generator=None):
@@ -162,16 +195,25 @@ class FRNet(nn.Module):
                                       ob=sb * ca.b + ob_bn, wb=cb.W, bb=cb.b, mode=mode))
         return blocks
 
+    def backbone_impl(self, on_cuda: bool, plain: bool = False) -> str:
+        """The conv3d_impl a forward takes now: "auto" resolved by the device,
+        the mode and the grad mode (see the class docstring)."""
+        if plain:
+            return "xla"
+        if self.conv3d_impl == "auto":
+            return ("fused" if on_cuda and not self.training and not torch.is_grad_enabled()
+                    else "xla")
+        return self.conv3d_impl
+
     def features(self, x, plain: bool = False):
         """x [N,T,h,w,3] in the compute dtype -> the backbone's output
         [N,T-6,h,w,C_fin] (conv1 and the dense blocks)."""
-        impl = "xla" if plain else self.conv3d_impl
-        if impl == "auto":
-            impl = "fused" if x.is_cuda and not torch.is_grad_enabled() else "xla"
+        impl = self.backbone_impl(x.is_cuda, plain)
         x = self.conv1(x, plain)
         if impl == "fused":
             if self.training:
-                raise NotImplementedError("kernel 9 folds the eval BatchNorms; call .eval()")
+                raise NotImplementedError("kernel 9 folds the eval BatchNorms and does not "
+                                          "train; train with conv3d_impl auto, pallas or xla")
             return dense_backbone(x, self.block_params())
         for r, mode in enumerate(self.modes):
             bna, ca, bnb, cb = self._block(r)

@@ -2,7 +2,9 @@
 
 TF1 `resize_images(align_corners=False)` legacy mapping: `src = dst*in/out`
 (no half-pixel offset), Keys cubic a = -0.75, taps clamped at the border
-(counterpart: pfnl_tpu/ops/resize.py).  The matrices are built in numpy;
+(counterpart: pfnl_tpu/ops/resize.py); `mapping="align_corners"` is TF1's
+`align_corners=True`, `src = dst*(in-1)/(out-1)` (FlowNet's pre and post
+resizes, reference modules/model_flownet.py:252,315).  The matrices are built in numpy;
 the product is a plain matmul, as the JAX package leaves it to XLA.
 """
 
@@ -56,21 +58,22 @@ def _resize_matrix(n_in: int, n_out: int, method: str, mapping: str) -> np.ndarr
     return w.astype(np.float32)
 
 
-def resize_images(x: torch.Tensor, size, method: str = "bilinear") -> torch.Tensor:
+def resize_images(x: torch.Tensor, size, method: str = "bilinear",
+                  mapping: str = "tf1") -> torch.Tensor:
     """[N,H,W,C] or [N,T,H,W,C] -> spatial size (H',W'); a 5-D input folds
     T into the batch (reference modules/videosr_ops.py:60-68).  bf16 stays
     bf16 through both products; every other dtype computes in float32."""
     if x.dim() == 5:
         n, t = x.shape[:2]
-        y = resize_images(x.reshape((n * t,) + x.shape[2:]), size, method)
+        y = resize_images(x.reshape((n * t,) + x.shape[2:]), size, method, mapping)
         return y.reshape((n, t) + y.shape[1:])
     out_h, out_w = int(size[0]), int(size[1])
     n, h, w, c = x.shape
     compute = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
 
     def matrix(n_in, n_out):
-        return on_device(("resize", n_in, n_out, method),
-                         lambda: _resize_matrix(n_in, n_out, method, "tf1"), x.device, compute)
+        return on_device(("resize", n_in, n_out, method, mapping),
+                         lambda: _resize_matrix(n_in, n_out, method, mapping), x.device, compute)
 
     wh, ww = matrix(h, out_h), matrix(w, out_w)
     y = torch.einsum("oh,nhwc->nowc", wh, x.to(compute))
@@ -82,5 +85,5 @@ def resize_bicubic(x: torch.Tensor, size) -> torch.Tensor:
     return resize_images(x, size, "bicubic")
 
 
-def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
-    return resize_images(x, size, "bilinear")
+def resize_bilinear(x: torch.Tensor, size, mapping: str = "tf1") -> torch.Tensor:
+    return resize_images(x, size, "bilinear", mapping)

@@ -1,1 +1,1 @@
-"""Training of the port (PFNL family so far)."""
+"""Training of the port: every family's Trainer, and EasyFlow pre-training."""

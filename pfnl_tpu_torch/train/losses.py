@@ -1,5 +1,5 @@
-"""Per-model loss graphs (counterpart: pfnl_tpu/train/losses.py), all
-families but DUF.
+"""Per-model loss graphs (counterpart: pfnl_tpu/train/losses.py), every
+family.
 
 A loss function takes (out: dict from the model, gt: [B,Tg,H,W,3] float
 RGB, lr: [B,T,h,w,3]) and returns a dict with:
@@ -13,7 +13,7 @@ import torch
 
 from pfnl_tpu_torch.ops.color import rgb2y
 from pfnl_tpu_torch.ops.constants import on_device
-from pfnl_tpu_torch.ops.losses import charbonnier, total_variation
+from pfnl_tpu_torch.ops.losses import charbonnier, huber, total_variation
 from pfnl_tpu_torch.ops.warp import backward_warp_local
 
 
@@ -73,6 +73,12 @@ def frvsr_loss(out, gt, lr):
     return {"loss": sr_loss + flow_loss, "loss_sr": sr_loss, "flow_loss": flow_loss}
 
 
+def duf_loss(out, gt, lr):
+    """delta-Huber, delta 0.01 (reference model/dufvsr.py:65)."""
+    loss = huber(gt, out["sr"], 0.01)
+    return {"loss": loss, "loss_sr": loss}
+
+
 LOSS_REGISTRY = {
     "pfnl": pfnl_loss,
     "vespcn": vespcn_like_loss,
@@ -80,4 +86,5 @@ LOSS_REGISTRY = {
     "ltdvsr": vespcn_like_loss,
     "drvsr": drvsr_loss,
     "frvsr": frvsr_loss,
+    "duf": duf_loss,
 }

@@ -1,5 +1,4 @@
-"""Trainer (counterpart: pfnl_tpu/train/trainer.py:46-355), every family
-but DUF.
+"""Trainer (counterpart: pfnl_tpu/train/trainer.py:46-355), every family.
 
 Replicates the reference training semantics:
   * Adam (beta1=0.9, beta2=0.999, eps=1e-8) with polynomial lr decay
@@ -22,15 +21,21 @@ Replicates the reference training semantics:
     (reference semantics), in either stage.
 
 One step: the uint8 host batch goes to the device, where it is augmented
-and degraded (data/pipeline.py), then forward, loss, backward (on a CUDA
-device PFNL's chain runs kernels 5 and 6; the flow families' splats run
-kernels 7 and 8 forward and their gather adjoints backward) and the Adam
-update.
+and degraded (data/pipeline.py), then the model's forward in training mode,
+loss, backward (on a CUDA device PFNL's chain runs kernels 5 and 6; the
+flow families' splats run kernels 7 and 8 forward and their gather
+adjoints backward; DUF's backbone runs cuDNN, or kernel 10 forward with
+conv3d_impl="pallas") and the Adam update.  DUF's BatchNorms normalise by
+the batch statistics and update their buffers once a step, as JAX's
+`mutable=["batch_stats"]` step does; an evaluation inside `fit` runs the
+model in eval mode and gives it back in training mode.
 
-DUF raises: its training BatchNorm statistics and `duf_loss` come with DUF
-training.  Checkpoints are torch.save files; the JAX package's orbax
-checkpoints are not read (`utils/weights.from_flax` seeds the port from
-JAX parameters).
+Checkpoints are torch.save files holding the model's state_dict, DUF's
+BatchNorm buffers with it; the JAX package's orbax checkpoints are not read
+(`utils/weights.from_flax` seeds the port from JAX parameters).  A DUF
+checkpoint written before the zero_debias shadows existed loads with them
+seeded from the moving statistics (`with_legacy_bn_shadows`, JAX
+`_restore_legacy_bn`).
 """
 
 import glob
@@ -49,6 +54,9 @@ KEEP_CHECKPOINTS = 5
 # top-level modules whose parameters are the "flow" stage's (JAX `_label_params`)
 FLOW_MODULES = ("easyflow", "flow", "flownet")
 LSTM_CLIP_NORM = 3.0  # DRVSR (model/drvsr.py:313-326)
+# DUF's zero_debias shadows beside each BatchNorm's moving statistics
+BN_SHADOWS = ("biased_mean", "biased_var", "local_step")
+LEGACY_LOCAL_STEP = 1e7  # past the BatchNorm warm-up: 1 - 0.999^t is 1 in float32
 
 
 def is_flow_param(name: str) -> bool:
@@ -102,16 +110,40 @@ def save_checkpoint(workdir: str, state: dict) -> str:
     return path
 
 
+def with_legacy_bn_shadows(model, saved: dict) -> dict:
+    """`saved` as `model` loads it.  A DUF checkpoint written before the
+    zero_debias shadows lacks, for some BatchNorms, exactly their three
+    shadow entries (BN_SHADOWS); those are seeded as JAX's
+    `_restore_legacy_bn` seeds them: biased_mean and biased_var from the
+    moving statistics, local_step 1e7.  Any other missing or unexpected key
+    is left for load_state_dict to raise on."""
+    want = model.state_dict()
+    missing = set(want) - set(saved)
+    if not missing or set(saved) - set(want):
+        return saved
+    bns = {k.rsplit(".", 1)[0] for k in missing}
+    if missing != {f"{bn}.{s}" for bn in bns for s in BN_SHADOWS} or not all(
+            f"{bn}.{s}" in saved for bn in bns for s in ("moving_mean", "moving_variance")):
+        return saved
+    out = dict(saved)
+    for bn in bns:
+        out[f"{bn}.biased_mean"] = saved[f"{bn}.moving_mean"].clone()
+        out[f"{bn}.biased_var"] = saved[f"{bn}.moving_variance"].clone()
+        out[f"{bn}.local_step"] = torch.full_like(want[f"{bn}.local_step"], LEGACY_LOCAL_STEP)
+    return out
+
+
 def load_newest_checkpoint(workdir: str, model, device):
-    """Load the newest checkpoint under workdir into `model`; returns its
-    state dict ("step", "model" and, from training, "optimizers"), or None
-    when there is none (the model keeps its weights, as JAX's restore keeps
-    the init)."""
+    """Load the newest checkpoint under workdir into `model` (strictly, but
+    for a legacy DUF checkpoint's shadows: `with_legacy_bn_shadows`);
+    returns its state dict ("step", "model" and, from training,
+    "optimizers"), or None when there is none (the model keeps its weights,
+    as JAX's restore keeps the init)."""
     ckpts = checkpoints(workdir)
     if not ckpts:
         return None
     state = torch.load(ckpts[-1], map_location=device, weights_only=True)
-    model.load_state_dict(state["model"])
+    model.load_state_dict(with_legacy_bn_shadows(model, state["model"]))
     return state
 
 
@@ -131,9 +163,6 @@ class Trainer:
         """cfg: a pfnl_tpu.config.Config.  device: where the model, the
         batches and the optimizer state live.  plain: run the model's
         plain path under plain autograd (the reference for the kernels)."""
-        if cfg.model == "duf":
-            raise NotImplementedError("DUF training (its BatchNorm statistics, duf_loss) "
-                                      "is not ported")
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = (model if model is not None else build_model(cfg)).to(self.device)
@@ -182,6 +211,7 @@ class Trainer:
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
         lr_in, gt = device_augment_and_degrade(batch, generator, self.cfg.producer,
                                                self.cfg.scale)
+        self.model.train()
         out = self.model(lr_in, plain=self.plain)
         losses = self.loss_fn(out if isinstance(out, dict) else {"sr": out}, gt, lr_in)
         # every gradient is cleared: the SR stage's Adam leaves the flow's unread

@@ -152,9 +152,15 @@ def test_ref_batchnorm_eval_and_folded_match_flax():
     js, jo = jm.apply(jv, method=lambda mod: mod.folded())
     _close(s, js)
     _close(o, jo)
+    # training mode: batch statistics and one zero_debias update of the buffers, as flax's
+    # is_train=True with mutable=["batch_stats"] (tests/test_torch_duf_train.py holds more)
     m.train()
-    with pytest.raises(NotImplementedError):
-        m(_t(x))
+    with torch.no_grad():
+        got = m(_t(x))
+    want, mut = jm.apply(jv, jnp.asarray(x), True, mutable=["batch_stats"])
+    _close(got, want)
+    for k, v in mut["batch_stats"].items():
+        _close(getattr(m, k), v)
 
 
 # ---------------------------------------------------------------- kernel 9's plain version

@@ -16,6 +16,7 @@ import torch
 from pfnl_tpu_torch.infer.profile_serving import seeded_model
 from pfnl_tpu_torch.models import DRVSR, DUF, LTDVSR, MCResNet, VESPCN
 from pfnl_tpu_torch.models.blocks import NonLocalBlock
+from pfnl_tpu_torch.models.duf import bn_cancelled_bias
 from pfnl_tpu_torch.models.pfnl import PFNL
 from pfnl_tpu_torch.ops.cuda import _build, launches, reset_launches
 from pfnl_tpu_torch.ops.cuda.bounded_splat import bounded_splat
@@ -700,3 +701,83 @@ def test_duf_wrappers_refuse_what_the_kernels_do_not_take(gen):
         duf_dense(buf[..., :64].contiguous(), _randn(gen, 3, 3, 3, 64, 24), True)  # G 24
     with pytest.raises(RuntimeError, match="autograd"):
         duf_dense(buf.clone().requires_grad_(), _randn(gen, 3, 3, 3, 96, 16), True)
+
+
+
+def test_duf_training_kernel_10_gradients_match_plain_autograd(gen):
+    """DUF-16L in training mode, float32, conv3d_impl="pallas": kernel 10
+    once per growth conv under autograd (`Conv3x3x3`), no kernel 9; against
+    plain autograd from the same weights, the Huber loss, the BatchNorm
+    buffers after the step (1e-5), and every parameter's gradient within
+    1e-3 of its L2 norm or within 3 times the most that float32 alone moves
+    it on the plain path, whichever is larger: the batch order reversed
+    (the same function summed in another order), or PyTorch's native conv
+    in place of cuDNN's.  The floor takes nothing from the kernel path, so
+    that a fault that depends on where a sample sits in the batch cannot
+    widen its own limit.  A training BatchNorm's backward amplifies
+    rounding: kernel 10's forward is as close to float64 as cuDNN's (7e-7
+    to 2e-6), yet a few of these gradients differ by 2e-3.  The biases a
+    BatchNorm cancels, 0 in exact arithmetic, are measured against the
+    median gradient norm."""
+    from pfnl_tpu_torch.train.losses import duf_loss
+
+    base = seeded_model("duf", torch.float32, 0, layers=16)
+    x = torch.rand((2, 7, 16, 16, 3), generator=gen, device="cuda")
+    gt = torch.rand((2, 1, 64, 64, 3), generator=gen, device="cuda")
+    res = {}
+    for plain, rev, cudnn in ((False, False, True), (True, False, True), (True, True, True),
+                              (True, False, False)):
+        m = DUF(layers=16, conv3d_impl="pallas").cuda().train()
+        m.load_state_dict(base.state_dict())
+        xi, gi = (x.flip(0), gt.flip(0)) if rev else (x, gt)
+        reset_launches()
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            loss = duf_loss({"sr": m(xi, plain=plain)}, gi, xi)["loss"]
+            loss.backward()
+        res[plain, rev, cudnn] = (loss.item(), {k: p.grad for k, p in m.named_parameters()},
+                                  dict(m.named_buffers()), dict(launches))
+    kern, plain = res[False, False, True], res[True, False, True]
+    assert kern[3] == {"duf_dense": 6} and plain[3] == {}
+    assert kern[0] == pytest.approx(plain[0], rel=1e-5)
+    median = sorted(g.norm().item() for g in plain[1].values())[len(plain[1]) // 2]
+    for k, g in plain[1].items():
+        err = (kern[1][k] - g).norm().item()
+        noise = max((res[True, True, True][1][k] - g).norm().item(),
+                    (res[True, False, False][1][k] - g).norm().item())
+        scale = median if bn_cancelled_bias(k) else g.norm().item()
+        assert err <= max(1e-3 * scale, 3 * noise), (k, err, noise)
+    for k, b in plain[2].items():
+        torch.testing.assert_close(kern[2][k], b, rtol=1e-5, atol=1e-5, msg=k)
+
+
+def test_duf_train_mode_forward_under_no_grad_takes_the_plain_backbone(gen):
+    """The auto rule reads the mode, as JAX reads is_train: a training-mode
+    forward under no_grad on the card runs the plain backbone (kernel 9
+    folds the eval statistics) and updates the BatchNorm buffers once; in
+    eval mode the same call launches kernel 9 once per dense block."""
+    m = seeded_model("duf", torch.float32, 0, layers=16).train()
+    x = torch.rand((1, 7, 12, 12, 3), generator=gen, device="cuda")
+    reset_launches()
+    with torch.no_grad():
+        sr = m(x)
+    assert dict(launches) == {} and torch.isfinite(sr).all()
+    assert all(b.item() == 1.0 for k, b in m.named_buffers() if k.endswith("local_step"))
+    m.eval()
+    with torch.no_grad():
+        m(x)
+    assert dict(launches) == {"duf_block": 6}
+
+
+def test_flownetc_on_the_card_matches_the_cpu(gen):
+    """FlowNet-C (plain PyTorch: its correlation is XLA in the JAX package,
+    not a kernel) on the card against the same weights on the CPU, float32
+    with TF32 off, at a size that is not a multiple of 64."""
+    from pfnl_tpu_torch.models.flownet import FlowNetC
+
+    model = FlowNetC(generator=torch.Generator().manual_seed(0)).eval()
+    a, b = (torch.rand((2, 72, 100, 3), generator=gen, device="cuda") for _ in range(2))
+    with torch.no_grad():
+        ref = model(a.cpu(), b.cpu())
+        got = model.cuda()(a, b).cpu()
+    assert got.shape == (2, 72, 100, 2)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()

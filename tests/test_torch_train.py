@@ -252,6 +252,16 @@ def test_every_parameter_gets_a_gradient():
 
 @pytest.mark.parametrize("over", [dict(model="duf")])
 def test_trainer_refuses_what_is_not_ported(over):
-    """DUF training (its BatchNorm statistics, duf_loss) is not ported."""
-    with pytest.raises(NotImplementedError, match="DUF training"):
-        Trainer(preset("pfnl", **over), model=PFNL(num_frames=7, num_blocks=1), device="cpu")
+    """DUF trains; what a DUF training step refuses is a backbone of kernel 9
+    (conv3d_impl="fused"), which folds the eval BatchNorms and has no
+    training form (JAX's training never takes it either)."""
+    from pfnl_tpu_torch.models import DUF
+
+    cfg = preset("pfnl", **over, in_size=4, batch_size=1, producer="double")
+    batch = {"lr": np.zeros((1, 7, 4, 4, 3), np.uint8), "gt": np.zeros((1, 1, 16, 16, 3), np.uint8)}
+    tr = Trainer(cfg, model=DUF(layers=16), device="cpu")
+    assert tr.loss_fn.__name__ == "duf_loss" and len(tr.optimizers) == 1
+    assert np.isfinite(tr.step(batch, tr.step_generator(0))["loss"].item())
+    tr = Trainer(cfg, model=DUF(layers=16, conv3d_impl="fused"), device="cpu")
+    with pytest.raises(NotImplementedError, match="kernel 9"):
+        tr.step(batch, tr.step_generator(0))
