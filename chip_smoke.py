@@ -153,12 +153,32 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the SR-only stage); c. FlowNetS, FlowNetC and WarpConfidence (eval
      mode) forward at FlowNet's published 384x512, batch 8: ms, peak
      memory, and the first pair against the same weights on the CPU.
+ 13. AOT export (infer/export.py; every launch a torch.ops.pfnl custom op):
+     a. PFNL at phase 4's configuration, b. VESPCN (phase 6's) and DUF-52L
+     (phase 7b's): export_model(model_name=...) at one batch of 4 windows
+     at 180x320, load_exported, one call: the seconds of export and load,
+     the artifact's MB, its pfnl nodes and launches a call (PFNL K1 1, K2
+     20, K3 20, K4 1; VESPCN K7 1; DUF-52L K9 24; none while tracing), its
+     output against eager serve (uint8 within 1 step, relative L2 1e-3),
+     forward ms of artifact and eager serve, and the refusal of a CPU input
+     and of another shape.
+ 14. multi-GPU on the one GPU: a. Predictor(devices=[cuda:0]) through
+     sharded_apply_dp at phase 4's configuration, its frames and launches
+     bitwise the single-device Predictor's; b. nonlocal_attention_sp over a
+     world-1 NCCL group at [4,14400,84] bf16, bitwise nonlocal_flash's, one
+     K1 launch; c. Trainer.fit under DDP over that group at phase 5c's
+     config: one step from the same weights and batch within 1e-6 of the
+     plain Trainer's, steps/s beside the plain Trainer's and phase 5c's,
+     peak memory; d. two processes on cuda:0 over gloo, one DDP step at the
+     paper config with the global batch of 16 (8 a rank, kernels 2-6), the
+     parameters within 5e-5 of one process's step at batch 16.
 
 The second-to-last line is a JSON summary of the kernels: launches from
 the path that runs each (phase 4 plus 5c for kernels 1-6, 6 and 8 for
 7, 6 for 8, 7b for 9, 7c for 10; and phase 9b's kernel path for 7 and 8,
 phase 10 for 1-4 and 7-9, 11b's kernel-10 path for 10, 11c for 9, 12b
-for 7); errors and times at the shape named in
+for 7, 13 for 1-4, 7 and 9, 14a-c for 1-6; each counted where the
+custom op's CUDA kernel launches); errors and times at the shape named in
 TIMED (bf16 but for kernels 5 and 6, float32 at the training shape);
 `bound_ms`, the least time the card could take for the same work (the larger of the
 bytes each call must move over 3.35 TB/s and its operations over the
@@ -266,6 +286,14 @@ NOISE_FACTOR, GRAD_BATCHES = 3, 3
 EF_BATCH, EF_CROP, EF_FRAMES = 20, 100, 7   # phase 12a: the reference's EasyFlow config
 EF_WARM, EF_STEPS = 3, 8                # phase 12a: steps before / inside the timed run
 FLOWNET_BATCH, FLOWNET_HW = 8, (384, 512)   # phase 12c: FlowNet's published input size
+# phase 13: an artifact's frames against eager serve's (the same kernels in the same order):
+# uint8 steps, and relative L2 of the float output
+EXPORT_U8_STEPS, EXPORT_REL_TOL = 1, 1e-3
+# phase 13: the pfnl nodes of each artifact, and so its launches a call
+EXPORT_WANT = {"pfnl": {"nonlocal_flash": 1, "pfrb_a": 20, "pfrb_b": 20, "pfnl_tail": 1},
+               "vespcn": {"bounded_splat": 1}, "duf": {"duf_block": 24}}
+DDP1_TOL = 1e-6     # 14c: max |p_DDP - p| after one step, world size 1, against the plain Trainer
+DDP2_TOL = 5e-5     # 14d: two ranks against one process at batch 16 (tests/test_parallel.py:70)
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
 TF32_ENTRIES = ("pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
@@ -844,14 +872,12 @@ def phase_train_gradients(card):
         fail("the kernel path's gradients disagree with the plain path's")
 
 
-def phase_train_fit(card):
-    """5c: Trainer.fit at the paper config over seeded in-memory clips."""
+def paper_train_set():
+    """(the pfnl preset, four seeded 12-frame 256x256 clips as sequences,
+    their frame store): phase 5c's training set."""
     from pfnl_tpu_torch.config import preset
     from pfnl_tpu_torch.data.frames import MemoryFrames
     from pfnl_tpu_torch.data.manifest import Sequence
-    from pfnl_tpu_torch.data.pipeline import TrainPipeline
-    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
-    from pfnl_tpu_torch.train.trainer import Trainer
 
     frames, seqs = {}, []
     for s in range(4):
@@ -859,15 +885,30 @@ def phase_train_fit(card):
         truth = [f"train/seq{s}/truth/{i:04d}.png" for i in range(len(clip))]
         frames.update(zip(truth, clip))
         seqs.append(Sequence(path=f"train/seq{s}", truth=truth, blur=[]))
-    mem = MemoryFrames(frames)
     # save_every below is past the run, so nothing is written to save_dir
     cfg = preset("pfnl", reload=False, save_dir="pfnl_tpu_torch/build/smoke_ckpt")
+    return cfg, seqs, MemoryFrames(frames)
+
+
+def paper_pipeline(cfg, seqs, mem):
+    """A TrainPipeline over paper_train_set()'s clips."""
+    from pfnl_tpu_torch.data.pipeline import TrainPipeline
+
+    return TrainPipeline(seqs, cfg.producer, cfg.num_frames, cfg.in_size, cfg.scale,
+                         cfg.batch_size, seed=cfg.seed, num_threads=cfg.host_threads,
+                         prefetch=cfg.prefetch, source=mem)
+
+
+def phase_train_fit(card):
+    """5c: Trainer.fit at the paper config over seeded in-memory clips."""
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    cfg, seqs, mem = paper_train_set()
     out = {}
     for plain in (False, True):
         tr = Trainer(cfg, model=paper_model(SEED), device="cuda", plain=plain)
-        pipe = TrainPipeline(seqs, cfg.producer, cfg.num_frames, cfg.in_size, cfg.scale,
-                             cfg.batch_size, seed=cfg.seed, num_threads=cfg.host_threads,
-                             prefetch=cfg.prefetch, source=mem)
+        pipe = paper_pipeline(cfg, seqs, mem)
         logged = []
 
         def log(line):
@@ -909,7 +950,7 @@ def phase_train_fit(card):
     print(f"[5c fit] steady steps/s: kernels {out['kernels']['steps_per_s']:.3f}, plain "
           f"{out['plain']['steps_per_s']:.3f} (batch {TRAIN_B}, LR {TRAIN_HW}x{TRAIN_HW}, "
           f"float32, TF32 off) on {card}", flush=True)
-    return out["kernels"]["counts"]
+    return out["kernels"]
 
 
 def degraded_clip():
@@ -1976,6 +2017,337 @@ def phase_easyflow_flownet(card):
     return counts
 
 
+def _pfnl_nodes(program):
+    """{kernel: the program's torch.ops.pfnl nodes of it}."""
+    import collections
+
+    return dict(collections.Counter(str(n.target).split(".")[1] for n in program.graph.nodes
+                                    if n.op == "call_function"
+                                    and str(n.target).startswith("pfnl.")))
+
+
+def _export_case(tag, model, name, lrs, card):
+    """13: the family's serving program exported at one window batch of the
+    clip (4 windows, LR 180x320, float32 input), loaded, called once: its
+    pfnl nodes and launches (EXPORT_WANT), its output against eager serve,
+    and the refusal of a CPU input and of another shape; the launches of
+    the export (its one eager call's: tracing counts none), the seconds of
+    the export and the load, the artifact's MB, the forward ms of artifact and
+    eager serve (CUDA events, 3 calls after a warm-up: eager, artifact,
+    artifact, eager).  Returns the launches of the one call."""
+    from pfnl_tpu_torch.infer.export import export_model, load_exported
+    from pfnl_tpu_torch.infer.predictor import _clipped_windows, serve, to_uint8
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+
+    want = {k: EXPORT_WANT[name].get(k, 0) for k in KERNELS}
+    x = torch.from_numpy(lrs[_clipped_windows(CLIP_FRAMES, model.num_frames)[:BATCH_WINDOWS]])
+    x = x.cuda()
+    reset_launches()
+    t0 = time.perf_counter()
+    blob = export_model(model, x.shape[0], x.shape[1], tuple(x.shape[2:4]), model_name=name)
+    export_s = time.perf_counter() - t0
+    traced = {k: v for k, v in launches.items() if v}
+    t0 = time.perf_counter()
+    fn = load_exported(blob)
+    load_s = time.perf_counter() - t0
+    nodes = _pfnl_nodes(fn.program)
+    reset_launches()
+    out = fn(x)
+    torch.cuda.synchronize()
+    counts = {k: launches[k] for k in KERNELS}
+    with torch.inference_mode():
+        ref = serve(model, x)
+    got = out[:, 0] if out.dim() == 5 else out
+    if got.shape != ref.shape or not torch.isfinite(out).all():
+        fail(f"{tag}: artifact output {tuple(out.shape)} (or non-finite) vs serve "
+             f"{tuple(ref.shape)}")
+    max_abs = (got - ref).abs().max().item()
+    rel = _rel(got, ref)
+    steps = (to_uint8(got).int() - to_uint8(ref).int()).abs().max().item()
+    with torch.inference_mode():
+        serve(model, x)
+        fn(x)
+        e1 = cuda_time_ms(lambda: serve(model, x))
+        a1 = cuda_time_ms(lambda: fn(x))
+        a2 = cuda_time_ms(lambda: fn(x))
+        e2 = cuda_time_ms(lambda: serve(model, x))
+    art_ms, eager_ms = (a1 + a2) / 2, (e1 + e2) / 2
+    refused = []
+    for bad, what in ((x.cpu(), "a CPU input"), (x[:1], f"shape {tuple(x[:1].shape)}")):
+        try:
+            fn(bad)
+        except ValueError:
+            refused.append(what)
+    print(f"[{tag}] {name}: export {export_s:.2f} s (launches {traced}: its eager call's), load "
+          f"{load_s:.2f} s, {len(blob) / 1e6:.2f} MB; pfnl nodes {nodes}; launches a call "
+          f"{ {k: v for k, v in counts.items() if v} }; output {tuple(out.shape)} vs eager serve: "
+          f"max abs {max_abs:.3e}, rel L2 {rel:.3e} (tolerance {EXPORT_REL_TOL:.0e}), uint8 "
+          f"steps {steps} (tolerance {EXPORT_U8_STEPS}); forward artifact {art_ms:.3f} ms "
+          f"({a1:.3f}, {a2:.3f}), eager serve {eager_ms:.3f} ms ({e1:.3f}, {e2:.3f}), artifact / "
+          f"eager {art_ms / eager_ms:.3f}; refused {refused} on {card}", flush=True)
+    if traced != {k: v for k, v in want.items() if v}:
+        fail(f"{tag}: export launched {traced}, not its one eager call's (tracing counts none)")
+    if nodes != {k: v for k, v in want.items() if v} or counts != want:
+        fail(f"{tag}: pfnl nodes {nodes} / launches {counts}, want {want}")
+    if rel > EXPORT_REL_TOL or steps > EXPORT_U8_STEPS:
+        fail(f"{tag}: the artifact disagrees with eager serve")
+    if len(refused) != 2:
+        fail(f"{tag}: the artifact took an input it must refuse (refused only {refused})")
+    return counts
+
+
+def phase_export(card, lrs):
+    """13a: PFNL at phase 4's configuration; 13b: VESPCN (phase 6's) and
+    DUF-52L (phase 7b's) the same way."""
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.models.pfnl import PFNL
+    from pfnl_tpu_torch.ops.cuda import KERNELS
+
+    total = {k: 0 for k in KERNELS}
+    cases = (("13a export", lambda: PFNL(dtype=torch.bfloat16,
+                                         generator=torch.Generator().manual_seed(SEED)
+                                         ).cuda().eval(), "pfnl"),
+             ("13b export", lambda: seeded_model("vespcn", torch.bfloat16, SEED), "vespcn"),
+             ("13b export", lambda: seeded_model("duf", torch.bfloat16, SEED), "duf"))
+    for tag, make, name in cases:
+        counts = _export_case(tag, make(), name, lrs, card)
+        for k in KERNELS:
+            total[k] += counts[k]
+        torch.cuda.empty_cache()
+    return total
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_predictor(card):
+    """14a: Predictor(devices=[cuda:0]) through sharded_apply_dp at phase 4's
+    configuration, beside the single-device Predictor on the same clip:
+    bitwise the same frames, the same launches."""
+    from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor
+    from pfnl_tpu_torch.models.pfnl import PFNL
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+
+    model = PFNL(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
+    model = model.cuda().eval()
+    clip = synthetic_clip(CLIP_FRAMES, H * 4, W * 4, SEED)
+    res = {}
+    for key, devices in (("single", None), ("dp", [torch.device("cuda", 0)])):
+        mem = MemoryFrames({f"clip/truth/{i:04d}.png": clip[i] for i in range(CLIP_FRAMES)})
+        pred = Predictor(model, batch_windows=BATCH_WINDOWS, source=mem, sink=mem,
+                         devices=devices)
+        reset_launches()
+        chunk_s = pred.test_video_truth("clip", name="sr")
+        counts = {k: launches[k] for k in KERNELS}
+        frames = [mem.read(p) for p in mem.list("clip/sr")]
+        fps = (CLIP_FRAMES - BATCH_WINDOWS) / float(np.sum(chunk_s[1:]))
+        res[key] = (counts, frames, fps)
+    n_batches = -(-CLIP_FRAMES // BATCH_WINDOWS)
+    same = (len(res["dp"][1]) == len(res["single"][1]) == CLIP_FRAMES
+            and all(np.array_equal(a, b) for a, b in zip(res["dp"][1], res["single"][1])))
+    want = {k: 0 for k in KERNELS}
+    want.update(nonlocal_flash=n_batches, pfrb_a=20 * n_batches, pfrb_b=20 * n_batches,
+                pfnl_tail=n_batches)
+    print(f"[14a dp predictor] devices [cuda:0]: {CLIP_FRAMES} frames bitwise equal to the "
+          f"single-device Predictor's: {same}; launches {res['dp'][0] == res['single'][0]} equal "
+          f"({ {k: v for k, v in res['dp'][0].items() if v} }); delivered {res['dp'][2]:.2f} HR "
+          f"frames/s (single {res['single'][2]:.2f}) on {card}", flush=True)
+    if not same or res["dp"][0] != res["single"][0] or res["dp"][0] != want:
+        fail("14a: the data-parallel Predictor differs from the single-device one")
+    return res["dp"][0]
+
+
+def _sp_attention(card):
+    """14b: nonlocal_attention_sp over the world-1 NCCL group at phase 4's
+    attention, [4,14400,84] bf16, against nonlocal_flash: bitwise, one K1."""
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.ops.cuda.nonlocal_flash import nonlocal_flash
+    from pfnl_tpu_torch.parallel.nonlocal_sp import nonlocal_attention_sp
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    shape = (BATCH_WINDOWS, (H // 2) * (W // 2), 3 * T * 4)
+    th, ph = (_rand(shape, gen, dist="uniform").bfloat16() for _ in range(2))
+    g = _rand(shape, gen, 0.5).bfloat16()
+    with torch.inference_mode():
+        reset_launches()
+        got = nonlocal_attention_sp(th, ph, g)
+        torch.cuda.synchronize()
+        counts = {k: launches[k] for k in KERNELS}
+        ref = nonlocal_flash(th, ph, g)
+        sp_ms = cuda_time_ms(lambda: nonlocal_attention_sp(th, ph, g))
+        k_ms = cuda_time_ms(lambda: nonlocal_flash(th, ph, g))
+    same = torch.equal(got, ref)
+    print(f"[14b sp attention] world-1 NCCL group, {list(shape)} bf16: bitwise equal to "
+          f"nonlocal_flash: {same}; launches { {k: v for k, v in counts.items() if v} }; "
+          f"{sp_ms:.3f} ms (nonlocal_flash {k_ms:.3f}) on {card}", flush=True)
+    want = {k: int(k == "nonlocal_flash") for k in KERNELS}
+    if not same or counts != want:
+        fail("14b: nonlocal_attention_sp differs from kernel 1")
+    return counts
+
+
+def _params(model):
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def _max_param_diff(a, b):
+    return max((a[k] - b[k]).abs().max().item() for k in b)
+
+
+def _ddp_world_1(card, rate_5c):
+    """14c: Trainer.fit under DDP over the world-1 NCCL group at phase 5c's
+    configuration: one step from the same weights and batch against the
+    plain Trainer's (DDP1_TOL), then FIT_STEPS steps after FIT_WARM on both,
+    steps/s and peak memory beside phase 5c's rate."""
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.parallel.mesh import make_mesh
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    cfg, seqs, mem = paper_train_set()
+    mesh = make_mesh(1, 1)
+    pipe = paper_pipeline(cfg, seqs, mem)
+    try:
+        batch = pipe.get_batch()
+    finally:
+        pipe.close()
+    after = {}
+    for ddp in (False, True):
+        tr = Trainer(cfg, model=paper_model(SEED), device="cuda")
+        if ddp:
+            tr.distribute(mesh)
+        tr.step(batch, tr.step_generator(0))
+        after[ddp] = _params(tr.model)
+    diff = _max_param_diff(after[True], after[False])
+    out = {}
+    for ddp in (True, False):
+        tr = Trainer(cfg, model=paper_model(SEED), device="cuda")
+        pipe = paper_pipeline(cfg, seqs, mem)
+        log = []
+        try:
+            tr.fit(pipe, max_steps=FIT_WARM, save_every=10**9, log_every=10**9,
+                   mesh=mesh if ddp else None, print_fn=log.append)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            tr.fit(pipe, max_steps=FIT_WARM + FIT_STEPS, save_every=10**9, log_every=5,
+                   print_fn=log.append)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pipe.close()
+        losses = [float(line.rsplit("loss:", 1)[1]) for line in log if "loss:" in line]
+        out[ddp] = dict(rate=FIT_STEPS / wall, peak=torch.cuda.max_memory_allocated(),
+                        counts={k: launches[k] for k in KERNELS}, losses=losses)
+        del tr
+        torch.cuda.empty_cache()
+    d, p = out[True], out[False]
+    print(f"[14c ddp world 1] one step, DDP vs the plain Trainer: max |dp| {diff:.3e} (tolerance "
+          f"{DDP1_TOL:.0e}); Trainer.fit {FIT_STEPS} steps after {FIT_WARM}: DDP {d['rate']:.3f} "
+          f"steps/s, without {p['rate']:.3f} (phase 5c {rate_5c:.3f}), DDP / without "
+          f"{d['rate'] / p['rate']:.3f}; peak memory DDP {d['peak'] / 2**30:.2f} GiB, without "
+          f"{p['peak'] / 2**30:.2f} GiB; launches a step "
+          f"{ {k: v / FIT_STEPS for k, v in d['counts'].items() if v} }; losses {d['losses']} "
+          f"on {card}", flush=True)
+    want = {k: 0 for k in KERNELS}
+    want.update(pfrb_a=20, pfrb_b=20, pfnl_tail=1, pfrb_bwd_b=20, pfrb_bwd_a=20)
+    if diff > DDP1_TOL or not d["losses"] or not all(np.isfinite(d["losses"])):
+        fail("14c: the world-1 DDP step differs from the plain Trainer's")
+    if any(d["counts"][k] != want[k] * FIT_STEPS for k in KERNELS):
+        fail(f"14c: launches {d['counts']} != {want} x {FIT_STEPS}")
+    return d["counts"]
+
+
+def _ddp_rank(rank, port, directory):
+    """14d, one of two ranks on cuda:0 over gloo: one DDP step of the
+    paper-config PFNL on this rank's 8 rows of the batch."""
+    from pfnl_tpu_torch.config import preset
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.parallel import multihost
+    from pfnl_tpu_torch.parallel.mesh import make_mesh
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"localhost:{port}", 2, rank, device="cuda:0", backend="gloo")
+    try:
+        batch = torch.load(f"{directory}/batch.pt")
+        rows = {k: v[rank * (len(v) // 2):(rank + 1) * (len(v) // 2)] for k, v in batch.items()}
+        tr = Trainer(preset("pfnl", reload=False), model=paper_model(SEED), device="cuda:0")
+        tr.distribute(make_mesh(2, 1))
+        reset_launches()
+        loss = tr.step(rows, tr.step_generator(0))["loss"]
+        torch.cuda.synchronize()
+        torch.save({"params": {k: v.cpu() for k, v in _params(tr.model).items()},
+                    "loss": tr._mean_over_data(loss),
+                    "launches": {k: launches[k] for k in KERNELS}},
+                   f"{directory}/rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _ddp_two_ranks(card):
+    """14d: two processes on the one GPU over gloo, one DDP step each at the
+    paper config with the global batch of 16 (8 rows a rank), through
+    K2-K6, against one process's step at batch 16 (DDP2_TOL)."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    cfg, seqs, mem = paper_train_set()
+    pipe = paper_pipeline(cfg, seqs, mem)
+    try:
+        batch = {k: torch.as_tensor(v) for k, v in pipe.get_batch().items()}
+    finally:
+        pipe.close()
+    directory = "pfnl_tpu_torch/build/smoke_ddp"
+    os.makedirs(directory, exist_ok=True)
+    torch.save(batch, f"{directory}/batch.pt")
+    tr = Trainer(cfg, model=paper_model(SEED), device="cuda")
+    loss = tr.step(batch, tr.step_generator(0))["loss"].item()
+    want = {k: v.cpu() for k, v in _params(tr.model).items()}
+    del tr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(_ddp_rank, args=(_free_port(), directory), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{directory}/rank{r}.pt") for r in range(2)]
+    diffs = [_max_param_diff(r["params"], want) for r in ranks]
+    print(f"[14d ddp 2 ranks, gloo, one GPU] batch {cfg.batch_size} as 2 x "
+          f"{cfg.batch_size // 2}: max |dp| against one process {diffs} (tolerance "
+          f"{DDP2_TOL:.0e}); loss {[r['loss'] for r in ranks]} vs {loss}; launches a rank "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}; {wall:.1f} s "
+          f"with the processes' start on {card}", flush=True)
+    for r in ranks:
+        if not all(r["launches"][k] for k in PFNL_KERNELS[1:]):
+            fail(f"14d: a rank did not run kernels 2-6: {r['launches']}")
+    if max(diffs) > DDP2_TOL or any(abs(r["loss"] - loss) > 1e-5 * abs(loss) for r in ranks):
+        fail("14d: two gloo ranks differ from one process at the global batch")
+
+
+def phase_multi_gpu(card, rate_5c):
+    """14: the data-parallel Predictor (a), spatial attention (b) and DDP
+    (c) over a world-1 NCCL group on the one GPU, then two gloo ranks on it
+    (d).  Returns the launches of a, b and c."""
+    from pfnl_tpu_torch.ops.cuda import KERNELS
+    from pfnl_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{_free_port()}", 1, 0, device="cuda")
+    try:
+        parts = [_dp_predictor(card), _sp_attention(card), _ddp_world_1(card, rate_5c)]
+    finally:
+        torch.distributed.destroy_process_group()
+    _ddp_two_ranks(card)
+    return {k: sum(p[k] for p in parts) for k in KERNELS}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -1992,7 +2364,8 @@ def main():
     counts = phase_end_to_end(name)
     results.update(phase_bwd_kernels(name))
     phase_train_gradients(name)
-    train_counts = phase_train_fit(name)
+    train = phase_train_fit(name)
+    train_counts = train["counts"]
     lr_frames, lrs = degraded_clip()
     y_counts = phase_y_serving(name, lr_frames, lrs)
     results.update(phase_duf_kernels(name))
@@ -2005,6 +2378,8 @@ def main():
     eval_counts = phase_eval(smi)
     duf_train_counts = phase_duf_training(smi)
     easyflow_counts = phase_easyflow_flownet(smi)
+    export_counts = phase_export(smi, lrs)
+    multi_counts = phase_multi_gpu(smi, train["steps_per_s"])
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
@@ -2012,9 +2387,10 @@ def main():
         fail(f"the port loaded JAX-side modules: {leaked[:5]}")
 
     path_launches = {k: counts[k] + train_counts[k] + y_counts[k] + frvsr_counts[k]
-                     + flow_counts[k] + eval_counts[k] + easyflow_counts[k] for k in TPU_KERNEL}
+                     + flow_counts[k] + eval_counts[k] + easyflow_counts[k] + export_counts[k]
+                     + multi_counts[k] for k in TPU_KERNEL}
     path_launches.update(duf_block=duf_counts["duf_block"] + eval_counts["duf_block"]
-                         + duf_train_counts["duf_block"],
+                         + duf_train_counts["duf_block"] + export_counts["duf_block"],
                          duf_dense=pallas_counts["duf_dense"] + duf_train_counts["duf_dense"])
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],
                     launches=path_launches[k], **{f: results[k][f] for f in (

@@ -10,7 +10,8 @@ reference it is tested against, and mirrors its layout:
              merge tail and the two splats with their gather adjoints, and
              the chain and the splats under autograd
   ops/cuda/  wrappers of the hand-written CUDA kernels (sources in csrc/),
-             built with nvcc on first use into build/
+             built with nvcc on first use into build/, each launch a
+             `torch.ops.pfnl` custom op (registered on import)
   models/    PFNL, the Y-channel flow families (VESPCN, MCResNet, LTDVSR,
              DRVSR) with their flow nets, FRVSR and DUF, as nn.Modules
   utils/     the flax-params <-> state_dict weight bridge, PNG I/O, the
@@ -22,8 +23,11 @@ reference it is tested against, and mirrors its layout:
   eval/      periodic validation of every family (PSNR; SSIM on the card
              for the Y families), the MATLAB-equivalent Y-PSNR/SSIM
              metrics and parity tables
-  infer/     the testvideos() inference API: window batches, and FRVSR's
-             frame-by-frame recurrence
+  infer/     the testvideos() inference API: window batches (on one device
+             or data-parallel over several), and FRVSR's frame-by-frame
+             recurrence; AOT export of a serving program (torch.export)
+  parallel/  process groups, the (data, space) mesh, data-parallel serving
+             and training helpers, spatially sharded non-local attention
 
 It imports torch and never jax, and loads nothing of `pfnl_tpu`: what it
 needs of a numpy-only module there, it carries as its own copy.
@@ -33,6 +37,7 @@ the two packages compare like with like.
 """
 
 from pfnl_tpu_torch.config import Config, preset
+from pfnl_tpu_torch.ops import cuda as _cuda  # noqa: F401  (registers the torch.ops.pfnl kernels)
 
 __version__ = "0.1.0"
 

@@ -10,12 +10,19 @@
     python -m pfnl_tpu_torch train {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr,duf} --train-list F
         [--eval-list F] [--eval-in-size 128x240] [--steps N] [--in-size 32] [--batch-size 16] [--save-dir D]
         [--save-every 500] [--compute-dtype float32|bfloat16] [--no-eval]
-        [--device cuda]
+        [--device cuda] [--dp N] [--sp N] [--coordinator HOST:PORT --num-processes N --process-id I]
+    python -m pfnl_tpu_torch export {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr,duf} [--save-dir D]
+        [--weights params.npz] [--compute-dtype float32|bfloat16] [--hw 180x320] [--batch 8]
+        [--dtype float32|bfloat16] [--out F.pt2] [--device cuda] [--seed 0]
     python -m pfnl_tpu_torch import-tf1 MODEL --ckpt PREFIX|FILE.h5 [--save-dir D]
     python -m pfnl_tpu_torch prepare --root R [--scale 4] [--val-count 19]
         [--overwrite] [--no-filelists] [--device cuda]
     python -m pfnl_tpu_torch parity MODEL --data DIR [--name N] [--tables-only]
         [and the options of `test`]
+
+`test --dp N` serves the window batches data-parallel over N devices
+(cuda:0..N-1, or N replicas on the CPU with `--device cpu`): run.py's
+`--dp` mesh.
 
 `test` super-resolves every sequence of a dataset directory into
 `DIR/<seq>/<NAME>/*.png`: PFNL degrades `DIR/<seq>/truth/*.png` on the
@@ -40,6 +47,17 @@ families staged at their `stage_switch_step`; DUF-52L batch 11, LR crop 32,
 its BatchNorms in training mode), saving checkpoints and the eval log
 (`<model>.txt`) under `--save-dir`, and resuming from its newest
 checkpoint.
+
+`train --dp N --sp M` trains data-parallel on N x M ranks, one process a
+device (the batch split over the N data ranks; the M space ranks of a data
+index replicate its step, as JAX's `--sp` does): without `--coordinator` it
+starts the N x M local ranks itself (cuda:0.. or the CPU), with it this
+process is rank `--process-id` of `--num-processes`, meeting the others at
+the coordinator's address (run.py's multi-host flags).
+
+`export` restores the model as `test` does and writes the AOT artifact of
+its serving program at batch x LR `--hw` (input `--dtype`) to `--out`
+(infer/export.py), printing what run.py's `export` prints.
 
 `import-tf1` reads the authors' TF1 checkpoint (a `PREFIX` with its
 `.index` and `.data-*` files, no TensorFlow needed; for DUF also the
@@ -94,6 +112,8 @@ def _parser():
     t = sub.add_parser("test", help="super-resolve every sequence of a dataset dir")
     serving(t)
     t.add_argument("--start", type=int, default=0, help="first sequence index")
+    t.add_argument("--dp", type=int, default=1,
+                   help="serve the window batches data-parallel over N devices")
 
     e = sub.add_parser("eval", help="evaluate the newest checkpoint of --save-dir")
     e.add_argument("model", choices=sorted(MODEL_REGISTRY))
@@ -116,6 +136,28 @@ def _parser():
     r.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"])
     r.add_argument("--no-eval", action="store_true")
     r.add_argument("--device", default="cuda")
+    r.add_argument("--dp", type=int, default=1, help="data-parallel ranks (the batch axis)")
+    r.add_argument("--sp", type=int, default=1,
+                   help="space ranks (the non-local attention's axis; replicate the step)")
+    r.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's rendezvous for a multi-process run")
+    r.add_argument("--num-processes", type=int, default=None)
+    r.add_argument("--process-id", type=int, default=None)
+
+    x = sub.add_parser("export", help="AOT-export the serving program (torch.export)")
+    x.add_argument("model", choices=sorted(MODEL_REGISTRY))
+    x.add_argument("--save-dir", default=None,
+                   help="restore its newest ckpt_*.pt (default: the preset's save_dir)")
+    x.add_argument("--weights", default=None,
+                   help="flat .npz of flax params (before --save-dir)")
+    x.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+    x.add_argument("--hw", type=_hw, default=(180, 320), help="LR input HxW")
+    x.add_argument("--batch", type=int, default=8)
+    x.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="the input's dtype")
+    x.add_argument("--out", default=None)
+    x.add_argument("--device", default="cuda")
+    x.add_argument("--seed", type=int, default=0, help="seed of the random weights")
 
     m = sub.add_parser("import-tf1", help="convert a reference TF1 checkpoint to ckpt_*.pt")
     m.add_argument("model", choices=sorted(MODEL_REGISTRY))
@@ -169,12 +211,39 @@ def _config(args, **over):
 
 
 def cmd_test(args):
-    """run.py cmd_test (:149-166) without the mesh."""
+    """run.py cmd_test (:149-166); --dp N serves on N devices (run.py's mesh)."""
     from pfnl_tpu_torch.infer.predictor import Predictor
 
     cfg = _config(args)
+    devices = None
+    dp = getattr(args, "dp", 1)
+    if dp > 1:
+        if torch.device(args.device).type == "cuda":
+            if dp > torch.cuda.device_count():
+                raise SystemExit(f"--dp {dp}: only {torch.cuda.device_count()} GPUs are visible")
+            devices = [torch.device("cuda", i) for i in range(dp)]
+        else:
+            devices = [torch.device(args.device)] * dp
     model, _ = _restored_model(args, cfg, args.seed, args.weights)
-    Predictor(model).testvideos(args.data, start=args.start, name=args.name or cfg.model)
+    Predictor(model, devices=devices).testvideos(args.data, start=args.start,
+                                                 name=args.name or cfg.model)
+
+
+def cmd_export(args):
+    """run.py cmd_export (:169-191)."""
+    from pfnl_tpu_torch.infer.export import export_model
+
+    cfg = _config(args)
+    model, _ = _restored_model(args, cfg, args.seed, args.weights)
+    h, w = args.hw
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    blob = export_model(model, args.batch, cfg.num_frames, (h, w), dtype=dtype,
+                        model_name=cfg.model)
+    out = args.out or f"{cfg.model}_{h}x{w}_b{args.batch}.pt2"
+    with open(out, "wb") as f:
+        f.write(blob)
+    print(f"exported {cfg.model} [{args.batch},{cfg.num_frames},{h},{w},3] "
+          f"-> {out} ({len(blob)/1e6:.1f} MB)")
 
 
 def cmd_import_tf1(args):
@@ -239,13 +308,8 @@ def cmd_eval(args):
     Evaluator(cfg, model).run(step, log_path=cfg.log_path)
 
 
-def cmd_train(args):
-    """run.py cmd_train (:60-120) without the multi-host flags."""
+def _train_config(args):
     from pfnl_tpu_torch.config import preset
-    from pfnl_tpu_torch.data.manifest import load_manifest
-    from pfnl_tpu_torch.data.pipeline import TrainPipeline
-    from pfnl_tpu_torch.eval.evaluator import Evaluator
-    from pfnl_tpu_torch.train.trainer import Trainer
 
     over = {k: v for k, v in (("train_list", args.train_list), ("eval_list", args.eval_list),
                               ("in_size", args.in_size), ("batch_size", args.batch_size),
@@ -253,10 +317,64 @@ def cmd_train(args):
                               ("compute_dtype", args.compute_dtype)) if v is not None}
     cfg = preset(args.model, **over)
     cfg.log_path = os.path.join(cfg.save_dir, f"{cfg.model}.txt")
-    tr = Trainer(cfg, device=args.device)
+    return cfg
+
+
+def cmd_train(args):
+    """run.py cmd_train (:60-120).  --dp/--sp without --coordinator start
+    the local ranks here (a TCP rendezvous on a free local port), each
+    training in its own process on its own device."""
+    cfg = _train_config(args)
+    ranks = args.dp * args.sp
+    if cfg.batch_size % args.dp:
+        raise SystemExit(f"batch {cfg.batch_size} not divisible by dp={args.dp}")
+    if ranks > 1 and args.coordinator is None:
+        if torch.device(args.device).type == "cuda" and ranks > torch.cuda.device_count():
+            raise SystemExit(f"--dp {args.dp} --sp {args.sp}: {ranks} ranks, "
+                             f"only {torch.cuda.device_count()} GPUs are visible")
+        import socket
+
+        import torch.multiprocessing as mp
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        mp.spawn(_train_rank, args=(args, f"localhost:{port}", ranks, True), nprocs=ranks,
+                 join=True)
+        return
+    _train_rank(args.process_id or 0, args, args.coordinator, args.num_processes)
+
+
+def _train_rank(rank, args, coordinator, num_processes, spawned=False):
+    """One rank of `train` (the whole run on one process).  Local CPU ranks
+    share the process's threads between them."""
+    if spawned and torch.device(args.device).type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // num_processes))
+    from pfnl_tpu_torch.data.manifest import load_manifest
+    from pfnl_tpu_torch.data.pipeline import TrainPipeline
+    from pfnl_tpu_torch.eval.evaluator import Evaluator
+    from pfnl_tpu_torch.parallel import multihost
+    from pfnl_tpu_torch.parallel.mesh import data_group, make_mesh
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    multihost.initialize(coordinator, num_processes, rank if coordinator else None,
+                         device=args.device)
+    cfg = _train_config(args)
+    mesh, data_rank, n_data = None, 0, 1
+    if multihost.world_size() > 1 or args.dp > 1 or args.sp > 1:
+        mesh = make_mesh(n_data=args.dp if args.dp > 1 else None, n_space=args.sp)
+        n_data = mesh.shape[0]
+        data_rank = torch.distributed.get_rank(data_group(mesh))
+        if cfg.batch_size % n_data:
+            raise SystemExit(f"batch {cfg.batch_size} not divisible by dp={n_data}")
+    device = multihost.local_device(args.device)
+    tr = Trainer(cfg, device=device)
     seqs = load_manifest(cfg.train_list, cfg.scale, need_blur=cfg.producer != "single")
+    # a rank renders its own rows from its own stream; the space ranks of a
+    # data index render the same rows (run.py:96-104)
     pipe = TrainPipeline(seqs, cfg.producer, cfg.num_frames, cfg.in_size, cfg.scale,
-                         cfg.batch_size, seed=cfg.seed, num_threads=cfg.host_threads,
+                         multihost.local_batch_size(cfg.batch_size, n_data),
+                         seed=cfg.seed + 7919 * data_rank, num_threads=cfg.host_threads,
                          prefetch=cfg.prefetch)
     eval_fn = None
     if not args.no_eval:
@@ -266,15 +384,18 @@ def cmd_train(args):
             ev.run(step, log_path=cfg.log_path)
 
     try:
-        tr.fit(pipe, max_steps=args.steps, eval_fn=eval_fn, save_every=args.save_every)
+        tr.fit(pipe, max_steps=args.steps, eval_fn=eval_fn, save_every=args.save_every,
+               mesh=mesh)
     finally:
         pipe.close()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
     {"test": cmd_test, "eval": cmd_eval, "train": cmd_train, "import-tf1": cmd_import_tf1,
-     "prepare": cmd_prepare, "parity": cmd_parity}[args.cmd](args)
+     "prepare": cmd_prepare, "parity": cmd_parity, "export": cmd_export}[args.cmd](args)
 
 
 if __name__ == "__main__":

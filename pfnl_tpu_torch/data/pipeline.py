@@ -193,13 +193,18 @@ def _flip_clip(clips, do_h, do_w, do_t):
     return torch.where(sel(do_t), clips.transpose(2, 3), clips)
 
 
-def device_augment_and_degrade(batch, generator, mode: str, scale: int, augment: bool = True):
+def device_augment_and_degrade(batch, generator, mode: str, scale: int, augment: bool = True,
+                               part=(0, 1)):
     """uint8 batch of tensors on the device -> float LR/GT training tensors.
 
     single: {"gt" [B,T,S,S,3]} -> lr [B,T,s,s,3], gt center [B,1,S,S,3]
             (flip THEN degrade, so augmented pairs stay exactly aligned);
             the flips [B,3] (rows, columns, transpose) are drawn uniformly
-            from `generator`, which lives on the batch's device
+            from `generator`, which lives on the batch's device.  part
+            (i, n): the batch is part i of n equal parts of a global batch
+            (a rank's rows under data-parallel training); the flips of the
+            whole global batch are drawn and this part's rows taken, so the
+            ranks together flip as one process at the global batch does
     double: {"lr","gt"} -> pass-through; flips happen on the host with
             alignment-corrected GT crops (sample_flip_crop)
     frvsr:  {"lr","gt"} -> no augmentation (reference parity)
@@ -211,7 +216,9 @@ def device_augment_and_degrade(batch, generator, mode: str, scale: int, augment:
         gt = batch["gt"].float() / 255.0
         b, t = gt.shape[:2]
         if augment:
-            f = torch.rand((b, 3), generator=generator, device=gt.device) < 0.5
+            i, n = part
+            f = torch.rand((b * n, 3), generator=generator, device=gt.device)
+            f = f[i * b:(i + 1) * b] < 0.5
             gt = _flip_clip(gt, f[:, 0], f[:, 1], f[:, 2])
         lr = downsample(gt, scale=scale)
         return lr, gt[:, t // 2:t // 2 + 1]

@@ -83,19 +83,37 @@ def serve(model, clip: torch.Tensor, plain: bool = False) -> torch.Tensor:
 
 
 class Predictor:
-    def __init__(self, model, batch_windows: int = 4, source=None, sink=None):
+    def __init__(self, model, batch_windows: int = 4, source=None, sink=None, devices=None):
         """model: a window model of one family (PFNL, DUF: [N,T,h,w,3] ->
         [N,1,Sh,Sw,3]; a Y family: a dict whose "sr" is [N,T',Sh,Sw,1]) or
         a recurrent one (FRVSR: `step`), with the serving attributes above,
         whose parameters sit on the device to run on.  batch_windows: the
-        least number of windows per forward batch."""
+        least number of windows per forward batch.
+
+        devices: several devices to serve window batches on, data-parallel
+        (JAX: `mesh=`): a replica of the model on each, every batch split
+        evenly over them by rows (parallel/spmd.py `sharded_apply_dp`), each
+        shard's serving program and uint8 conversion on its device, the
+        frames gathered in order on the first, which uploads the batches.
+        batch_windows is rounded up to a multiple of their count.  The
+        recurrent path (FRVSR) stays on the model's device, as in JAX."""
         self.model = model
         self.num_frames = model.num_frames
         self.scale = model.scale
         self.device = next(model.parameters()).device
-        self.batch_windows = batch_windows
         self.source = source or PngFrames()
         self.sink = sink or PngFrames()
+        self._serve = lambda clip: to_uint8(serve(self.model, clip))
+        if devices is not None and not model.recurrent:
+            from pfnl_tpu_torch.parallel.spmd import device_list, replicate, sharded_apply_dp
+
+            devices = device_list(devices)
+            replicas = replicate(model, devices)
+            self.device = devices[0]
+            self._serve = sharded_apply_dp(
+                lambda device, clip: to_uint8(serve(replicas[device], clip)), devices)
+            batch_windows = -(-batch_windows // len(devices)) * len(devices)
+        self.batch_windows = batch_windows
 
     def _read_video(self, directory: str) -> np.ndarray:
         files = self.source.list(directory)
@@ -162,7 +180,7 @@ class Predictor:
             enqueued; returns (host uint8 [B,H,W,3], its CUDA event)."""
             if not cuda:
                 with torch.inference_mode():
-                    return to_uint8(serve(self.model, torch.from_numpy(lrs[sel]))), None
+                    return self._serve(torch.from_numpy(lrs[sel])), None
             while len(pinned_in) < 2:
                 pinned_in.append((torch.empty((num_once + t - 1,) + lrs.shape[1:],
                                               dtype=torch.from_numpy(lrs[:1]).dtype,
@@ -177,7 +195,7 @@ class Predictor:
             with torch.inference_mode():
                 span = frames[:hi - lo].to(self.device, non_blocking=True)
                 clip = span[idx.to(self.device, non_blocking=True)]  # [B,T,h,w,3]
-                u8 = to_uint8(serve(self.model, clip))
+                u8 = self._serve(clip)
             while len(pinned_out) < 2:
                 pinned_out.append(torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True))
             host = pinned_out[i % 2]  # batch i-2's frames were written out by flush(i-2)

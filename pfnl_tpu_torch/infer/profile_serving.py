@@ -1,6 +1,7 @@
 """Where the time goes in a serving batch of PFNL, a Y family or DUF on a CUDA device.
 
     python -m pfnl_tpu_torch.infer.profile_serving [--families pfnl vespcn drvsr duf ...]
+        [--export]
 
 For each family at full width, bf16, seeded random weights (for DUF also
 seeded BatchNorm statistics), one batch of `--batch` windows at LR `--lr`
@@ -29,6 +30,14 @@ seeded BatchNorm statistics), one batch of `--batch` windows at LR `--lr`
     (to pageable memory here, pinned in the Predictor), then the in-memory
     sink per frame (the Predictor overlaps this tail with the next batch's
     forward).
+
+With --export, for each family the loaded AOT artifact of its serving
+program (infer/export.py) beside eager `serve` on the same batch: event
+ms (eager, artifact, artifact, eager, 5 calls each), the host's enqueue
+and the device's done ms of a call, the device busy ms, the CUDA kernels
+whose time or count a call differs by (torch.profiler, two calls), and the
+operators the artifact runs a different number of times than eager serve
+(the nodes the export added or dropped, by the profiler's host events).
 """
 
 import argparse
@@ -152,11 +161,83 @@ def profile_family(family: str, batch: int, h: int, w: int, seed: int = 0):
           f"{1e3 * (t2 - t1):.1f} ms", flush=True)
 
 
+def _calls(fn):
+    """({kernel: (device ms, launches)}, {host operator: calls}), a call's
+    mean over two under torch.profiler."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+    kern, ops = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kern[e.key] = (e.self_device_time_total / 2e3, e.count / 2)
+        elif e.key.startswith(("aten::", "pfnl::")):
+            ops[e.key] = e.count / 2
+    return kern, ops
+
+
+def _host_ms(fn):
+    """(ms until a call returns, ms until the device is done), mean of 3."""
+    enqueue = done = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue, done = enqueue + (t1 - t0) / 3, done + (time.perf_counter() - t0) / 3
+    return 1e3 * enqueue, 1e3 * done
+
+
+def profile_export(family: str, batch: int, h: int, w: int, seed: int = 0):
+    from pfnl_tpu_torch.infer.export import export_model, load_exported
+
+    model = seeded_model(family, torch.bfloat16, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((batch, model.num_frames, h, w, 3), generator=gen, device="cuda")
+    fn = load_exported(export_model(model, batch, model.num_frames, (h, w), model_name=family))
+    with torch.inference_mode():
+        runs = {"eager": lambda: serve(model, x), "artifact": lambda: fn(x)}
+        for f in runs.values():
+            f()
+        ms = {k: [] for k in runs}
+        for k in ("eager", "artifact", "artifact", "eager"):
+            ms[k].append(_event_ms(runs[k], 5))
+        host = {k: _host_ms(f) for k, f in runs.items()}
+        prof = {k: _calls(f) for k, f in runs.items()}
+    busy = {k: sum(t for t, _ in prof[k][0].values()) for k in runs}
+    print(f"== {family} export: {batch} windows, LR {h}x{w}, bf16; eager serve "
+          f"{', '.join(f'{v:.3f}' for v in ms['eager'])} ms, artifact "
+          f"{', '.join(f'{v:.3f}' for v in ms['artifact'])} ms; device busy eager "
+          f"{busy['eager']:.3f} ms, artifact {busy['artifact']:.3f} ms", flush=True)
+    for k, (enq, done) in host.items():
+        print(f"host, {k}: a call returns after {enq:.3f} ms, the device is done after "
+              f"{done:.3f} ms", flush=True)
+    ke, ka = prof["eager"][0], prof["artifact"][0]
+    diff = []
+    for key in set(ke) | set(ka):
+        (te, ce), (ta, ca) = ke.get(key, (0.0, 0)), ka.get(key, (0.0, 0))
+        if ce != ca or abs(ta - te) > 0.01:
+            diff.append((ta - te, ca - ce, ta, ca, key))
+    print("kernels a call, artifact - eager (ms, launches; the artifact's ms, launches):",
+          flush=True)
+    for dt, dc, ta, ca, key in sorted(diff, key=lambda d: -abs(d[0]))[:12]:
+        print(f"  {dt:+8.3f} ms {dc:+5.1f}  ({ta:.3f} ms, {ca:.1f})  {key[:90]}", flush=True)
+    oe, oa = prof["eager"][1], prof["artifact"][1]
+    ops = sorted(((oa.get(k, 0) - oe.get(k, 0), k) for k in set(oe) | set(oa)
+                  if oa.get(k, 0) != oe.get(k, 0)), key=lambda d: -abs(d[0]))
+    print("host operators a call, artifact - eager: " + ", ".join(
+        f"{k} {d:+.1f}" for d, k in ops[:20]), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--families", nargs="+", default=list(Y_FAMILIES), choices=FAMILIES)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--lr", type=int, nargs=2, default=(180, 320), metavar=("H", "W"))
+    ap.add_argument("--export", action="store_true",
+                    help="the loaded AOT artifact of each family beside eager serve")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
@@ -166,7 +247,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for fam in args.families:
-        profile_family(fam, args.batch, *args.lr)
+        (profile_export if args.export else profile_family)(fam, args.batch, *args.lr)
 
 
 if __name__ == "__main__":

@@ -94,6 +94,18 @@ class Conv3D(nn.Module):
         return y + self.b.to(dt)
 
 
+def _global_moments(xf, axes, group):
+    """Mean and population variance of xf over `axes` and over every rank
+    of `group` (equal shapes on every rank), differentiably."""
+    from torch.distributed import get_world_size
+    from torch.distributed.nn.functional import all_reduce
+
+    count = xf[..., 0].numel() * get_world_size(group)
+    mean = all_reduce(xf.sum(axes), group=group) / count
+    var = all_reduce((xf - mean).square().sum(axes), group=group) / count
+    return mean, var
+
+
 class RefBatchNorm(nn.Module):
     """The reference's moving-average BN: gamma * (x - mean) * rsqrt(var +
     1e-3) + beta in float32, cast back to x's dtype.
@@ -104,12 +116,21 @@ class RefBatchNorm(nn.Module):
     zero_debias moving averages: biased <- biased * d + stat * (1 - d) with
     d = 0.999, local_step <- local_step + 1, moving = biased / (1 - d^t),
     the power in float32 (pfnl_tpu/models/duf.py:137-159).  Eval mode reads
-    moving_mean and moving_variance, which start at 0 as in the reference."""
+    moving_mean and moving_variance, which start at 0 as in the reference.
+
+    stats_group: under data-parallel training, the process group of the data
+    axis (the Trainer sets it).  The statistics are then those of the global
+    batch, as `jnp.mean` / `jnp.var` reduce a batch sharded over the mesh in
+    the JAX package: the sum, then the sum of squared deviations from the
+    global mean, each all-reduced over the group by a differentiable
+    all-reduce, so the output, the gradients and the buffers are the
+    single-process step's at the global batch."""
 
     decay = 0.999
 
     def __init__(self, features: int):
         super().__init__()
+        self.stats_group = None
         self.beta = nn.Parameter(torch.zeros(features))
         self.gamma = nn.Parameter(torch.ones(features))
         for name in ("moving_mean", "moving_variance", "biased_mean", "biased_var"):
@@ -120,7 +141,10 @@ class RefBatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             axes = tuple(range(x.dim() - 1))
-            mean, var = xf.mean(axes), xf.var(axes, unbiased=False)
+            if self.stats_group is None:
+                mean, var = xf.mean(axes), xf.var(axes, unbiased=False)
+            else:
+                mean, var = _global_moments(xf, axes, self.stats_group)
             with torch.no_grad():
                 d = self.decay
                 self.biased_mean.copy_(self.biased_mean * d + mean * (1 - d))

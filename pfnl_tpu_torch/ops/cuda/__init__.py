@@ -2,12 +2,18 @@
 
 Each wrapper runs its plain PyTorch version on a CPU tensor and launches
 its kernel on a CUDA tensor (or raises); there is no fallback from one to
-the other.  A kernel records no autograd graph, so on a CUDA tensor a
-wrapper raises when grad is enabled and an input requires it; training
-reaches kernels 2-6 through ops/pfrb_chain.py and `merge_tail`, kernels 7
-and 8 through `BoundedSplat` / `SpmcSplat` (ops/warp.py routes to them),
-kernel 10 through `conv3x3x3`.  `launches` counts calls that launch a kernel, by
-name (kernels 4 and 9 are two launches from one call, counted once):
+the other.  On a CUDA tensor the wrapper checks the inputs, casts the
+weights and calls its `torch.library` custom op, `torch.ops.pfnl.<name>`
+(library.py, registered when this package is imported; nothing is built
+until the first launch), so `torch.export` traces each launch as one node
+(infer/export.py).  A kernel records no autograd graph, so on a CUDA
+tensor a wrapper raises when grad is enabled and an input requires it;
+training reaches kernels 2-6 through ops/pfrb_chain.py and `merge_tail`,
+kernels 7 and 8 through `BoundedSplat` / `SpmcSplat` (ops/warp.py routes
+to them), kernel 10 through `conv3x3x3`.  `launches` counts the op calls
+that launch a kernel, by name, where the op's CUDA kernel launches it (so a
+launch from a loaded artifact counts, and tracing counts none; kernels 4
+and 9 are two launches from one call, counted once):
 
   nonlocal_flash  kernel 1   ops/cuda/nonlocal_flash.py  csrc/nonlocal_flash.cu, mma.cuh
   pfrb_a          kernel 2   ops/cuda/pfrb.py            csrc/pfrb.cu
@@ -31,6 +37,7 @@ dense blocks (models/duf.py: 9 for the whole backbone, 10 per growth conv
 with conv3d_impl="pallas").
 """
 
+from pfnl_tpu_torch.ops.cuda import library  # noqa: F401  (registers torch.ops.pfnl)
 from pfnl_tpu_torch.ops.cuda._build import launches, reset_launches
 
 KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a",

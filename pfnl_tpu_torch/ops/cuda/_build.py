@@ -35,8 +35,9 @@ OBJ = os.path.join(BUILD, "obj")
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = GENCODE + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# Kernel launches per kernel name, bumped by each wrapper where it launches
-# its kernel (never on the plain CPU path).
+# Kernel launches per kernel name, bumped by each custom op's CUDA kernel
+# (library.py) where it launches its kernel (never on the plain CPU path,
+# never while torch.export traces).
 launches = collections.Counter()
 
 _lib = None

@@ -28,7 +28,7 @@ def bounded_splat(im: torch.Tensor, uv: torch.Tensor, max_disp: int) -> torch.Te
     _build.check_no_grad("bounded_splat", im, uv)
     if im.dtype != uv.dtype:
         raise TypeError(f"bounded_splat: im {im.dtype} and uv {uv.dtype} differ")
-    sfx = _build.suffix(im.dtype)
+    _build.suffix(im.dtype)  # raises for a dtype the kernel does not take
     if im.dim() != 4 or tuple(uv.shape) != tuple(im.shape[:3]) + (2,):
         raise ValueError(f"bounded_splat: im must be [B,H,W,C] and uv [B,H,W,2], got "
                          f"{tuple(im.shape)} and {tuple(uv.shape)}")
@@ -37,10 +37,7 @@ def bounded_splat(im: torch.Tensor, uv: torch.Tensor, max_disp: int) -> torch.Te
     if not 1 <= c <= MAX_CHANNELS or not 0 <= max_disp <= bound or min(b, h, w) < 1:
         raise ValueError(f"bounded_splat: takes 1 <= C <= {MAX_CHANNELS} and 0 <= max_disp <= "
                          f"{bound}, got C={c}, max_disp={max_disp}")
-    out = torch.empty_like(im)
-    _build.call(f"pfnl_bounded_splat_{sfx}", im, uv, out, b, h, w, c, int(max_disp))
-    _build.launches["bounded_splat"] += 1
-    return out
+    return torch.ops.pfnl.bounded_splat(im, uv, int(max_disp))
 
 
 class BoundedSplat(torch.autograd.Function):

@@ -49,13 +49,12 @@ def dense_block(buf: torch.Tensor, p: BlockParams, in_lo: int, in_hi: int,
         raise ValueError(f"duf_block: scratch must hold {need} elements of {buf.dtype}")
     _build.check_cuda_inputs("duf_block", buf, scratch)
     dt, dev = buf.dtype, buf.device
-    sfx = _build.suffix(dt)
+    _build.suffix(dt)  # raises for a dtype the kernel does not take
     sa, oa, sb, ob, bb = (v.detach().to(device=dev, dtype=torch.float32).contiguous()
                           for v in (p.sa, p.oa, p.sb, p.ob, p.bb))
     wa, wb = (_build.kernel_weight(v, dt, dev) for v in (p.wa, p.wb))
-    _build.call(f"pfnl_duf_block_{sfx}", buf, scratch, sa, oa, wa, sb, ob, wb, bb, nb, t, h, w,
-                c, f, g, in_lo, in_hi, int(p.mode == "thw"))
-    _build.launches["duf_block"] += 1
+    torch.ops.pfnl.duf_block(buf, scratch, sa, oa, wa, sb, ob, wb, bb, in_lo, in_hi,
+                             p.mode == "thw")
     return buf
 
 

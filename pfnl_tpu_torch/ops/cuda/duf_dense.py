@@ -35,13 +35,8 @@ def duf_dense(x: torch.Tensor, wk: torch.Tensor, pad_t: bool) -> torch.Tensor:
     t_out = t if pad_t else t - 2
     if t_out < 1:
         raise ValueError(f"duf_dense: {t} frames are too few for a VALID-T conv")
-    dt = x.dtype
-    sfx = _build.suffix(dt)
-    wkc = _build.kernel_weight(wk, dt, x.device)
-    out = torch.empty(nb, t_out, h, w, g, dtype=dt, device=x.device)
-    _build.call(f"pfnl_duf_dense_{sfx}", x, wkc, out, nb, t, h, w, f, g, int(bool(pad_t)))
-    _build.launches["duf_dense"] += 1
-    return out
+    _build.suffix(x.dtype)  # raises for a dtype the kernel does not take
+    return torch.ops.pfnl.duf_dense(x, _build.kernel_weight(wk, x.dtype, x.device), bool(pad_t))
 
 
 class Conv3x3x3(torch.autograd.Function):

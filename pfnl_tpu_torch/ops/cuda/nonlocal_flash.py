@@ -23,7 +23,7 @@ def nonlocal_flash(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor) -> t
     _build.check_no_grad("nonlocal_flash", theta, phi, g)
     if not theta.dtype == phi.dtype == g.dtype:
         raise TypeError(f"nonlocal_flash: mixed dtypes {theta.dtype}, {phi.dtype}, {g.dtype}")
-    sfx = _build.suffix(g.dtype)
+    _build.suffix(g.dtype)  # raises for a dtype the kernel does not take
     b, n, d = theta.shape
     m, dv = g.shape[1], g.shape[2]
     if phi.shape != (b, m, d) or g.shape[0] != b:
@@ -31,7 +31,4 @@ def nonlocal_flash(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor) -> t
                          f"{tuple(phi.shape)}, {tuple(g.shape)} do not agree")
     if d > MAX_DIM or dv > MAX_DIM or min(b, n, m, d, dv) < 1:
         raise ValueError(f"nonlocal_flash: takes 1 <= D, Dv <= {MAX_DIM}, got D={d}, Dv={dv}")
-    out = torch.empty(b, n, dv, dtype=g.dtype, device=g.device)
-    _build.call(f"pfnl_nonlocal_flash_{sfx}", theta, phi, g, out, b, n, m, d, dv)
-    _build.launches["nonlocal_flash"] += 1
-    return out
+    return torch.ops.pfnl.nonlocal_flash(theta, phi, g)

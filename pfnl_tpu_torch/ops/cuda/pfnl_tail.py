@@ -31,18 +31,14 @@ def pfnl_tail(feat5, wm1, bm1, km2, bm2):
         raise ValueError(f"pfnl_tail: Wm1 {tuple(wm1.shape)} / Wm2 {tuple(km2.shape)} "
                          f"do not fit feat {tuple(feat5.shape)}")
     dt, dev = feat5.dtype, feat5.device
-    sfx = _build.suffix(dt)
+    _build.suffix(dt)  # raises for a dtype the kernel does not take
     wm1k = _build.kernel_weight(wm1, dt, dev)
     bm1f = _build.weight_f32(bm1, dt, dev)
     # the fold puts at most one HR tap in each LR entry, so folding after the
     # rounding is exact
     wf = fold_d2s_conv(_build.kernel_weight(km2, dt, dev)).contiguous()
     bf = _build.weight_f32(bm2, dt, dev).repeat(4).contiguous()
-    m = torch.empty(n, h, w, MERGE, dtype=dt, device=dev)
-    out = torch.empty(n, h, w, MERGE, dtype=dt, device=dev)
-    _build.call(f"pfnl_tail_{sfx}", feat5, wm1k, bm1f, wf, bf, m, out, n, t, h, w)
-    _build.launches["pfnl_tail"] += 1
-    return out
+    return torch.ops.pfnl.pfnl_tail(feat5, wm1k, bm1f, wf, bf)
 
 
 class MergeTail(torch.autograd.Function):

@@ -33,14 +33,10 @@ def pfrb_a(feat, w1, b1, wfuse, bfuse):
     if tuple(w1.shape) != (3, 3, c, c) or tuple(wfuse.shape) != (t, c, c):
         raise ValueError(f"pfrb_a: W1 {tuple(w1.shape)} / Wfuse {tuple(wfuse.shape)} "
                          f"do not fit feat {tuple(feat.shape)}")
-    sfx = _build.suffix(feat.dtype)
+    _build.suffix(feat.dtype)  # raises for a dtype the kernel does not take
     w1f, wff = (_build.kernel_weight(p, feat.dtype, feat.device) for p in (w1, wfuse))
     b1f, bff = (_build.weight_f32(p, feat.dtype, feat.device) for p in (b1, bfuse))
-    i1 = torch.empty_like(feat)
-    base = torch.empty(n, h, w, c, dtype=feat.dtype, device=feat.device)
-    _build.call(f"pfnl_pfrb_a_{sfx}", feat, w1f, b1f, wff, bff, i1, base, n, t, h, w)
-    _build.launches["pfrb_a"] += 1
-    return i1, base
+    return torch.ops.pfnl.pfrb_a(feat, w1f, b1f, wff, bff)
 
 
 def pfrb_b(feat, i1, base, w2f, w2b, b2):
@@ -59,13 +55,10 @@ def pfrb_b(feat, i1, base, w2f, w2b, b2):
         raise TypeError("pfrb_b: feat, i1 and base must share a dtype")
     if tuple(w2f.shape) != (3, 3, c, c) or tuple(w2b.shape) != (3, 3, c, c):
         raise ValueError("pfrb_b: W2f and W2b must be [3,3,64,64]")
-    sfx = _build.suffix(feat.dtype)
+    _build.suffix(feat.dtype)  # raises for a dtype the kernel does not take
     w2ff, w2bf = (_build.kernel_weight(p, feat.dtype, feat.device) for p in (w2f, w2b))
     b2f = _build.weight_f32(b2, feat.dtype, feat.device)
-    out = torch.empty_like(feat)
-    _build.call(f"pfnl_pfrb_b_{sfx}", feat, i1, base, w2ff, w2bf, b2f, out, n, t, h, w)
-    _build.launches["pfrb_b"] += 1
-    return out
+    return torch.ops.pfnl.pfrb_b(feat, i1, base, w2ff, w2bf, b2f)
 
 
 def pfrb_block(feat, w1, b1, wfuse, bfuse, w2f, w2b, b2):

@@ -21,17 +21,6 @@ from pfnl_tpu_torch.ops.pfrb_ref import mirror_t, pfrb_bwd_a_ref, pfrb_bwd_b_ref
 _KERNEL_ENTRIES = 9 * CHANNELS * CHANNELS  # dW [3,3,64,64], then db [64]
 
 
-def _grad_buffers(device):
-    """(scratch of the per-range partial sums, sizes) as pfrb_bwd.cu has them."""
-    entries = _build.constant("pfnl_wgrad_entries")
-    if entries != _KERNEL_ENTRIES + CHANNELS:
-        raise RuntimeError(f"pfrb_bwd.cu reduces {entries} entries, expected "
-                           f"{_KERNEL_ENTRIES + CHANNELS}")
-    part = torch.empty(_build.constant("pfnl_wgrad_scratch_floats"), dtype=torch.float32,
-                       device=device)
-    return part, entries
-
-
 def _split(buf):
     c = CHANNELS
     return buf[:_KERNEL_ENTRIES].view(3, 3, c, c), buf[_KERNEL_ENTRIES:]
@@ -68,17 +57,9 @@ def pfrb_bwd_b(dz2, i1, base, w2f, w2b):
     _check_kernel("pfrb_bwd_b", w2f, c)
     _check_kernel("pfrb_bwd_b", w2b, c)
     dt, dev = dz2.dtype, dz2.device
-    sfx = _build.suffix(dt)
+    _build.suffix(dt)  # raises for a dtype the kernel does not take
     w2ft, w2bt = (_conv_t_weight(p, dt, dev) for p in (w2f, w2b))
-    part, entries = _grad_buffers(dev)
-    d_i1 = torch.empty_like(dz2)
-    dzsum = torch.empty(n, h, w, c, dtype=dt, device=dev)
-    d_base = torch.empty_like(dzsum)
-    gw2f = torch.empty(entries, dtype=torch.float32, device=dev)
-    gw2b = torch.empty_like(gw2f)
-    _build.call(f"pfnl_pfrb_bwd_b_{sfx}", dz2, i1, base, w2ft, w2bt, d_i1, dzsum, d_base, part,
-                gw2f, gw2b, n, t, h, w)
-    _build.launches["pfrb_bwd_b"] += 1
+    d_i1, d_base, gw2f, gw2b = torch.ops.pfnl.pfrb_bwd_b(dz2, i1, base, w2ft, w2bt)
     dw2f, db2 = _split(gw2f)
     return d_i1, d_base, dw2f, _split(gw2b)[0], db2
 
@@ -99,12 +80,7 @@ def pfrb_bwd_a(dz1, feat, g, w1):
     n, t, h, w, c = dz1.shape
     _check_kernel("pfrb_bwd_a", w1, c)
     dt, dev = dz1.dtype, dz1.device
-    w1t = _conv_t_weight(w1, dt, dev)
-    part, entries = _grad_buffers(dev)
-    d_feat = torch.empty_like(dz1)
-    gw1 = torch.empty(entries, dtype=torch.float32, device=dev)
-    _build.call(f"pfnl_pfrb_bwd_a_{_build.suffix(dt)}", dz1, feat, g, w1t, d_feat, part, gw1,
-                n, t, h, w)
-    _build.launches["pfrb_bwd_a"] += 1
+    _build.suffix(dt)  # raises for a dtype the kernel does not take
+    d_feat, gw1 = torch.ops.pfnl.pfrb_bwd_a(dz1, feat, g, _conv_t_weight(w1, dt, dev))
     dw1, db1 = _split(gw1)
     return d_feat, dw1, db1

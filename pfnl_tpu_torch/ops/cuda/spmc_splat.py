@@ -27,7 +27,7 @@ def spmc_splat(im: torch.Tensor, uv: torch.Tensor, scale: int, max_disp: int) ->
     _build.check_no_grad("spmc_splat", im, uv)
     if im.dtype != uv.dtype:
         raise TypeError(f"spmc_splat: im {im.dtype} and uv {uv.dtype} differ")
-    sfx = _build.suffix(im.dtype)
+    _build.suffix(im.dtype)  # raises for a dtype the kernel does not take
     if im.dim() != 4 or im.shape[-1] != 1 or tuple(uv.shape) != tuple(im.shape[:3]) + (2,):
         raise ValueError(f"spmc_splat: im must be [B,H,W,1] and uv [B,H,W,2], got "
                          f"{tuple(im.shape)} and {tuple(uv.shape)}")
@@ -36,10 +36,7 @@ def spmc_splat(im: torch.Tensor, uv: torch.Tensor, scale: int, max_disp: int) ->
     if scale != SCALE or not 0 <= max_disp <= bound or min(b, h, w) < 1:
         raise ValueError(f"spmc_splat: takes scale {SCALE} and 0 <= max_disp <= {bound}, "
                          f"got scale={scale}, max_disp={max_disp}")
-    out = torch.empty((b, h * scale, w * scale, 1), dtype=im.dtype, device=im.device)
-    _build.call(f"pfnl_spmc_splat_{sfx}", im, uv, out, b, h, w, int(max_disp))
-    _build.launches["spmc_splat"] += 1
-    return out
+    return torch.ops.pfnl.spmc_splat(im, uv, int(scale), int(max_disp))
 
 
 class SpmcSplat(torch.autograd.Function):

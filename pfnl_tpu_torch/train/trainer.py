@@ -30,6 +30,19 @@ the batch statistics and update their buffers once a step, as JAX's
 `mutable=["batch_stats"]` step does; an evaluation inside `fit` runs the
 model in eval mode and gives it back in training mode.
 
+Data-parallel training (`fit(mesh=...)`, JAX `Trainer.fit(mesh=)`), one
+process per device: the model runs under DistributedDataParallel over the
+mesh's data axis (gradients averaged, so DRVSR's LSTM clip applies to the
+averaged gradient, as optax clips the global one; `find_unused_parameters`
+for the staged families), each rank steps its own rows of the global batch
+with the flips the single-process step draws for those rows, DUF's training
+BatchNorms take the global batch's statistics (`RefBatchNorm.stats_group`),
+the logged loss is the mean over the data axis, and rank 0 alone logs,
+evaluates and saves, with a barrier after each save and each evaluation.
+A resume reads the checkpoint on rank 0 and broadcasts the model, every
+Adam state and the step.  Ranks along the space axis hold the same rows,
+so the step is replicated over it.
+
 Checkpoints are torch.save files holding the model's state_dict, DUF's
 BatchNorm buffers with it; the JAX package's orbax checkpoints are not read
 (`utils/weights.from_flax` seeds the port from JAX parameters).  A DUF
@@ -45,9 +58,11 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from pfnl_tpu_torch.data.pipeline import device_augment_and_degrade
 from pfnl_tpu_torch.models import MODEL_REGISTRY
+from pfnl_tpu_torch.parallel import multihost
 from pfnl_tpu_torch.train.losses import LOSS_REGISTRY
 
 KEEP_CHECKPOINTS = 5
@@ -181,6 +196,9 @@ class Trainer:
         self.clipped = [p for n, p in named if is_lstm_param(n)] if cfg.model == "drvsr" else []
         self.global_step = 0
         self._started = False
+        self.net = self.model          # what a step runs: the model, or its DDP wrapper
+        self.data_group = None         # the mesh's data axis under data-parallel training
+        self.data_part = (0, 1)        # (this rank's index, ranks) along the data axis
         n_flow = sum(p.numel() for n, p in named if is_flow_param(n))
         n_all = sum(p.numel() for _, p in named)
         if n_flow:
@@ -210,9 +228,9 @@ class Trainer:
         device tensors (reading them waits for the device)."""
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
         lr_in, gt = device_augment_and_degrade(batch, generator, self.cfg.producer,
-                                               self.cfg.scale)
+                                               self.cfg.scale, part=self.data_part)
         self.model.train()
-        out = self.model(lr_in, plain=self.plain)
+        out = self.net(lr_in, plain=self.plain)
         losses = self.loss_fn(out if isinstance(out, dict) else {"sr": out}, gt, lr_in)
         # every gradient is cleared: the SR stage's Adam leaves the flow's unread
         self.model.zero_grad(set_to_none=True)
@@ -247,10 +265,16 @@ class Trainer:
         """Load the newest checkpoint, if there is one (reference reload=True),
         with every stage's Adam state.  One without Adam state (`import-tf1`
         writes the model alone, at step 0) starts each Adam fresh, as JAX's
-        import writes a fresh optimizer state."""
-        state = load_newest_checkpoint(self.workdir, self.model, self.device)
+        import writes a fresh optimizer state.  Under a process group rank 0
+        reads it and every rank loads rank 0's (only rank 0 saves)."""
+        state = None
+        if multihost.is_main():
+            state = load_newest_checkpoint(self.workdir, self.model, self.device)
+        state = multihost.broadcast_from_main(state)
         if state is None:
             return False
+        if not multihost.is_main():
+            self.model.load_state_dict(with_legacy_bn_shadows(self.model, state["model"]))
         saved = state.get("optimizers", [])
         if saved and len(saved) != len(self.optimizers):
             raise ValueError(f"{self.workdir}: the checkpoint holds {len(saved)} Adam states, "
@@ -260,13 +284,49 @@ class Trainer:
         self.global_step = int(state["step"])
         return True
 
+    # --- data parallelism -----------------------------------------------
+    def distribute(self, mesh):
+        """Run the steps under DistributedDataParallel over `mesh`'s data
+        axis (parallel/mesh.py), this process's rank driving self.device;
+        the pipeline gives this rank its rows of the global batch
+        (`multihost.local_batch_size`)."""
+        from torch.nn.parallel import DistributedDataParallel
+
+        from pfnl_tpu_torch.parallel.mesh import data_group
+
+        group = data_group(mesh)
+        size = dist.get_world_size(group)
+        self.data_group = group
+        self.data_part = (dist.get_rank(group), size)
+        for m in self.model.modules():
+            if hasattr(m, "stats_group"):
+                m.stats_group = group if size > 1 else None
+        self.net = DistributedDataParallel(
+            self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
+            process_group=group, find_unused_parameters=self.staged)
+
+    def _mean_over_data(self, v: torch.Tensor) -> float:
+        """A rank's loss -> its mean over the data axis (every rank calls it)."""
+        if self.data_group is None:
+            return float(v)
+        v = v.detach().float().clone()
+        dist.all_reduce(v, group=self.data_group)
+        return float(v) / self.data_part[1]
+
     # --- loop -----------------------------------------------------------
     def fit(self, pipeline, max_steps: Optional[int] = None,
             eval_fn: Optional[Callable[["Trainer", int], None]] = None,
-            save_every: int = 500, log_every: int = 20, print_fn=print) -> "Trainer":
+            save_every: int = 500, log_every: int = 20, print_fn=print,
+            mesh=None) -> "Trainer":
         """Train until global step max_steps (cfg.max_step by default);
-        eval_fn(trainer, step) runs every save_every steps."""
+        eval_fn(trainer, step) runs every save_every steps.  mesh: train
+        data-parallel over it (`distribute`), every rank calling fit."""
         cfg = self.cfg
+        if mesh is not None and self.data_group is None:
+            self.distribute(mesh)
+        main = multihost.is_main()
+        if not main:
+            print_fn = lambda *a, **k: None  # noqa: E731  (rank 0 alone logs)
         if cfg.reload and not self._started:
             self.restore()
         self._started = True
@@ -279,7 +339,7 @@ class Trainer:
             """Divergence check on the most recent loss (model/pfnl.py:195-199)."""
             if last_losses is None:
                 return True
-            loss_v = float(last_losses["loss"])
+            loss_v = self._mean_over_data(last_losses["loss"])
             if math.isnan(loss_v):
                 raise FloatingPointError("Model diverged with loss = NaN")
             if step > 500 and loss_v > 10:
@@ -294,12 +354,16 @@ class Trainer:
                     collapsed = True
                     break
                 print_fn(f"{time.strftime('%Y-%m-%d %H:%M:%S')} Step:{step},"
-                         f" loss:{float(last_losses['loss'])}")
+                         f" loss:{self._mean_over_data(last_losses['loss'])}")
             if step % save_every == 0:
                 if step > start:
-                    self.save()
+                    if main:
+                        self.save()
+                    multihost.barrier()
                 if eval_fn is not None:
-                    eval_fn(self, step)
+                    if main:
+                        eval_fn(self, step)
+                    multihost.barrier()
                 print_fn(f"cost {time.time() - t0}s.")
                 t0 = time.time()
             last_losses = self.step(pipeline.get_batch(), self.step_generator(step))

@@ -781,3 +781,122 @@ def test_flownetc_on_the_card_matches_the_cpu(gen):
         got = model.cuda()(a, b).cpu()
     assert got.shape == (2, 72, 100, 2)
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+# --- the kernels as torch.library custom ops; export; multi-GPU at world size 1 ------------
+
+def _op_args(gen, name, dtype):
+    """torch.ops.pfnl.<name>'s arguments at a small shape, as its wrapper
+    hands them over (weights cast as the entry for dtype reads them)."""
+    from pfnl_tpu_torch.ops.cuda.pfrb_bwd import _conv_t_weight
+    from pfnl_tpu_torch.ops.pfrb_ref import fold_d2s_conv
+
+    t = lambda *s, scale=0.1: _randn(gen, *s, scale=scale).to(dtype)  # noqa: E731
+    kw = lambda w: _build.kernel_weight(w, dtype, "cuda")  # noqa: E731
+    f32 = lambda w: _build.weight_f32(w, dtype, "cuda")  # noqa: E731
+    feat, w3, b = t(1, 3, 8, 8, 64), _randn(gen, 3, 3, 64, 64, scale=0.05), _randn(gen, 64)
+    base = t(1, 8, 8, 64)
+    if name == "nonlocal_flash":
+        return (t(1, 64, 32, scale=1.0), t(1, 80, 32, scale=1.0), t(1, 80, 24, scale=1.0))
+    if name == "pfrb_a":
+        return (feat, kw(w3), f32(b), kw(_randn(gen, 3, 64, 64, scale=0.05)), f32(b))
+    if name == "pfrb_b":
+        return (feat, feat, base, kw(w3), kw(w3), f32(b))
+    if name == "pfnl_tail":
+        km2 = _randn(gen, 3, 3, 12, 12, scale=0.1)
+        return (feat, kw(_randn(gen, 3, 3, 192, 48, scale=0.02)), f32(_randn(gen, 48)),
+                fold_d2s_conv(kw(km2)).contiguous(), f32(_randn(gen, 12)).repeat(4).contiguous())
+    if name == "pfrb_bwd_b":
+        return (feat, feat, base, _conv_t_weight(w3, dtype, "cuda"),
+                _conv_t_weight(w3, dtype, "cuda"))
+    if name == "pfrb_bwd_a":
+        return (feat, feat, feat, _conv_t_weight(w3, dtype, "cuda"))
+    if name == "bounded_splat":
+        return (t(2, 16, 16, 3, scale=1.0), (torch.rand((2, 16, 16, 2), generator=gen,
+                                                        device="cuda") * 4 - 2).to(dtype), 2)
+    if name == "spmc_splat":
+        return (t(2, 16, 16, 1, scale=1.0), (torch.rand((2, 16, 16, 2), generator=gen,
+                                                        device="cuda") * 4 - 2).to(dtype), 4, 2)
+    if name == "duf_block":
+        p = _duf_block_params(gen, 16, 16, "thw")
+        buf = t(1, 3, 8, 8, 32, scale=1.0)
+        return (buf, torch.empty(3 * 64 * 16, dtype=dtype, device="cuda"),
+                *(v.float().contiguous() for v in (p.sa, p.oa)), kw(p.wa),
+                *(v.float().contiguous() for v in (p.sb, p.ob)), kw(p.wb), p.bb.float(),
+                0, 3, True)
+    if name == "duf_dense":
+        return (t(1, 5, 8, 8, 16, scale=1.0), kw(_randn(gen, 3, 3, 3, 16, 16, scale=0.1)), False)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail",
+                                  "pfrb_bwd_b", "pfrb_bwd_a", "bounded_splat", "spmc_splat",
+                                  "duf_block", "duf_dense"])
+def test_opcheck(gen, name, dtype):
+    """torch.library.opcheck on each pfnl op: the schema (duf_block mutates
+    its buffer and scratch and says so, the others mutate nothing), the fake
+    implementation against the kernel's outputs, and the op under
+    AOTAutograd with dynamic shapes."""
+    torch.library.opcheck(getattr(torch.ops.pfnl, name).default, _op_args(gen, name, dtype))
+
+
+def test_pfnl_artifact_on_the_card_launches_its_kernels_and_matches_serve(gen):
+    """PFNL, 2 blocks, bf16, LR 130x132 (65x66 non-local positions, so
+    kernel 1 runs): the exported program holds one pfnl node a launch,
+    export launches one eager call's kernels (tracing none), the loaded
+    artifact launches kernels 1-4 once a node and gives eager serve's
+    frames (uint8 within 1 step, relative L2 1e-3: the same kernels in the
+    same order), and refuses a CPU input."""
+    from collections import Counter
+
+    from pfnl_tpu_torch.infer.export import export_model, load_exported
+    from pfnl_tpu_torch.infer.predictor import serve, to_uint8
+
+    model = PFNL(num_blocks=2, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    x = torch.rand((2, 7, 130, 132, 3), generator=gen, device="cuda")
+    want = {"nonlocal_flash": 1, "pfrb_a": 2, "pfrb_b": 2, "pfnl_tail": 1}
+    reset_launches()
+    blob = export_model(model, 2, 7, (130, 132), model_name="pfnl")
+    assert dict(launches) == want  # the eager call before the trace
+    fn = load_exported(blob)
+    reset_launches()
+    nodes = Counter(n.target.__name__.split(".")[0] for n in fn.program.graph.nodes
+                    if n.op == "call_function" and "pfnl" in str(n.target))
+    assert dict(nodes) == want
+    out = fn(x)
+    assert dict(launches) == want
+    with torch.inference_mode():
+        ref = serve(model, x)
+    assert out.shape == (2, 1, 520, 528, 3)
+    assert ((out[:, 0] - ref).norm() / ref.norm()).item() <= 1e-3
+    assert (to_uint8(out[:, 0]).int() - to_uint8(ref).int()).abs().max().item() <= 1
+    assert fn.meta["device"] == "cuda:0"
+    with pytest.raises(ValueError):
+        fn(x.cpu())
+
+
+def test_nonlocal_attention_sp_at_world_size_1_is_kernel_1(gen):
+    """Over a world-1 NCCL group the gathered keys are the rank's own, and
+    the attention is one kernel-1 launch, bitwise nonlocal_flash's."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pfnl_tpu_torch.parallel.nonlocal_sp import nonlocal_attention_sp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        th, ph, g = _attention_inputs(gen, torch.bfloat16, 2, 1000, 1000, 84)
+        reset_launches()
+        with torch.no_grad():
+            got = nonlocal_attention_sp(th, ph, g)
+        assert dict(launches) == {"nonlocal_flash": 1}
+        with torch.no_grad():
+            assert torch.equal(got, nonlocal_flash(th, ph, g))
+    finally:
+        dist.destroy_process_group()
