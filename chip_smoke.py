@@ -172,13 +172,41 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      peak memory; d. two processes on cuda:0 over gloo, one DDP step at the
      paper config with the global batch of 16 (8 a rank, kernels 2-6), the
      parameters within 5e-5 of one process's step at batch 16.
+ 15. frames on disk, in a temporary directory, every PNG through the
+     port's codec (cv2 and PIL blocked, also in the `test` subprocess):
+     a. the codec (pfnl_tpu_torch/native, zlib alone) built with g++:
+     seconds, design, g++'s version, whether cv2 and PIL import here, and
+     image_io reading through the codec (no other);
+     b. phase 4's clip written as clip/truth/NNNN.png through PngFrames and
+     read back bitwise, a cropped 7-frame window by decode_crop_batch
+     bitwise the numpy crop, encode and decode ms a frame at 1 and 4
+     threads; c. `python -m pfnl_tpu_torch test pfnl --data DIR
+     --compute-dtype bfloat16` as a subprocess (seeded weights as phase
+     4's): its PNGs decode bitwise equal to the same model's frames
+     through MemoryFrames in process; delivered HR frames/s from disk
+     beside the in-memory rate; d. four 16-frame validation sequences
+     added, then through __main__.main in process: `prepare` (blur4/ on
+     the card, written as PNG, and the filelists), `train pfnl` for 4 steps
+     from the train filelist (TrainPipeline decoding through
+     decode_crop_batch; finite losses, kernels 2-6 launched; the host ms a
+     batch), `eval pfnl` on its checkpoint (one line appended to pfnl.txt,
+     K1 1, K2 20, K3 20, K4 1).
+ 16. parallel/spmd.sharded_forward at phase 4's configuration, batch 4,
+     as (data 1, space 2), (1, 4) and (2, 2) on [cuda:0] * n: launches a
+     forward (K1 and K4 once a band, K2 and K3 20 times a band), the SR
+     against the float32 plain path (2e-2) and against the unsharded
+     kernel path: within 1e-3 (bitwise printed) with conv0 on PyTorch's own
+     convolution on both sides, and printed with cuDNN's, whose algorithm
+     for a band differs from the whole image's (conv0's outputs that differ
+     printed); forward ms (CUDA events) and peak memory beside the
+     unsharded forward's.
 
 The second-to-last line is a JSON summary of the kernels: launches from
 the path that runs each (phase 4 plus 5c for kernels 1-6, 6 and 8 for
 7, 6 for 8, 7b for 9, 7c for 10; and phase 9b's kernel path for 7 and 8,
 phase 10 for 1-4 and 7-9, 11b's kernel-10 path for 10, 11c for 9, 12b
-for 7, 13 for 1-4, 7 and 9, 14a-c for 1-6; each counted where the
-custom op's CUDA kernel launches); errors and times at the shape named in
+for 7, 13 for 1-4, 7 and 9, 14a-c for 1-6, 15d for 1-6, 16 for 1-4; each
+counted where the custom op's CUDA kernel launches); errors and times at the shape named in
 TIMED (bf16 but for kernels 5 and 6, float32 at the training shape);
 `bound_ms`, the least time the card could take for the same work (the larger of the
 bytes each call must move over 3.35 TB/s and its operations over the
@@ -193,12 +221,17 @@ else null.  The last line is
 device the script fails before printing any result.
 """
 
+import collections
 import contextlib
+import glob
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -294,6 +327,19 @@ EXPORT_WANT = {"pfnl": {"nonlocal_flash": 1, "pfrb_a": 20, "pfrb_b": 20, "pfnl_t
                "vespcn": {"bounded_splat": 1}, "duf": {"duf_block": 24}}
 DDP1_TOL = 1e-6     # 14c: max |p_DDP - p| after one step, world size 1, against the plain Trainer
 DDP2_TOL = 5e-5     # 14d: two ranks against one process at batch 16 (tests/test_parallel.py:70)
+# phase 15d: four 16-frame validation sequences, each one eval window at eval_in_size 128x240
+# (truth 512x960 plus the evaluator's 8-pixel border): one batch of the Evaluator's 4 windows
+DISK_VAL_SEQS, DISK_VAL_FRAMES, DISK_VAL_HW = 4, 16, (528, 976)
+DISK_TRAIN_STEPS, DISK_SAVE_EVERY = 4, 2    # 15d: train's steps, its checkpoint after step 2
+# phase 15: the codec is for machines with neither cv2 nor PIL; where they import, the phase
+# blocks them (here and in the `test` subprocess), so every PNG goes through the port's codec
+BLOCKED = ("cv2", "PIL", "PIL.Image")
+# phase 16: sharded_forward's (data, space) layouts on [cuda:0] * data * space, and its SR
+# against the unsharded kernel path with conv0 on PyTorch's own conv (the same kernels and
+# ops on fewer rows: bitwise expected)
+SHARDED_LAYOUTS = [(1, 2), (1, 4), (2, 2)]
+SHARDED_TOL = 1e-3
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
 TF32_ENTRIES = ("pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
@@ -697,7 +743,7 @@ def phase_end_to_end(card):
           f"{ref.abs().max().item():.3e}", flush=True)
     if rel > E2E_TOL:
         fail("bf16 kernel path disagrees with the f32 plain path")
-    return counts
+    return counts, fps
 
 
 def bwd_inputs(shape, dt, gen):
@@ -2348,6 +2394,304 @@ def phase_multi_gpu(card, rate_5c):
     return {k: sum(p[k] for p in parts) for k in KERNELS}
 
 
+def _ms_a_frame(fn, n, threads):
+    """Milliseconds a frame of fn(i) for i < n on `threads` host threads
+    (a ctypes call releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    if threads == 1:
+        for i in range(n):
+            fn(i)
+    else:
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(fn, range(n)))
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _disk_codec(card, root, clip, installed):
+    """15a-b: build the port's PNG codec; the clip written as
+    <root>/clip/truth/NNNN.png through PngFrames and read back bitwise; a
+    cropped 7-frame window against the numpy crop; ms a frame at 1 and 4
+    threads.  installed: the versions of cv2 and PIL on this machine."""
+    from pfnl_tpu_torch import native
+    from pfnl_tpu_torch.data.frames import PngFrames
+    from pfnl_tpu_torch.utils import image_io
+
+    seconds = native.build(force=True)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()[0]
+    print(f"[15a codec] g++ built {native.LIB} in {seconds:.2f} s: the port's PNG codec over "
+          f"{native.codec()} alone (loader.cc; libpng's header is not on this machine); {gxx}; "
+          f"{installed} on this machine, blocked for this phase", flush=True)
+    if image_io.codec() != "native":
+        fail(f"15a: image_io reads through {image_io.codec()}, not the port's native codec")
+
+    store = PngFrames()
+    paths = [os.path.join(root, "clip", "truth", f"{i:04d}.png") for i in range(CLIP_FRAMES)]
+    enc = {t: _ms_a_frame(lambda i: store.write(paths[i], clip[i]), CLIP_FRAMES, t)
+           for t in (1, 4)}
+    back = np.stack([store.read(p) for p in paths])
+    dec = {}
+    for t in (1, 4):
+        t0 = time.perf_counter()
+        whole = native.decode_crop_batch(paths, threads=t)
+        dec[t] = (time.perf_counter() - t0) * 1e3 / CLIP_FRAMES
+        if not np.array_equal(whole, clip):
+            fail(f"15b: decode_crop_batch at {t} threads differs from the frames written")
+    rng = np.random.default_rng(SEED)
+    crop = 4 * TRAIN_HW
+    y0 = rng.integers(0, H * 4 - crop + 1, T)
+    x0 = rng.integers(0, W * 4 - crop + 1, T)
+    window = native.decode_crop_batch(paths[3:3 + T], y0, x0, (crop, crop), threads=4)
+    want = np.stack([clip[3 + i, y0[i]:y0[i] + crop, x0[i]:x0[i] + crop] for i in range(T)])
+    mb = sum(os.path.getsize(p) for p in paths) / 2**20
+    print(f"[15b frames on disk] {CLIP_FRAMES} frames {H * 4}x{W * 4} through PngFrames "
+          f"({mb:.1f} MiB): read back bitwise {np.array_equal(back, clip)}; a {T}-frame "
+          f"{crop}x{crop} cropped window bitwise the numpy crop {np.array_equal(window, want)}; "
+          f"encode {enc[1]:.2f} ms a frame at 1 thread, {enc[4]:.2f} at 4; decode {dec[1]:.2f} "
+          f"at 1, {dec[4]:.2f} at 4 on {card}", flush=True)
+    if not np.array_equal(back, clip) or not np.array_equal(window, want):
+        fail("15b: the frames on disk differ from those written")
+
+
+def _disk_test(card, root, clip, fps_4):
+    """15c: `python -m pfnl_tpu_torch test pfnl` from the directory, as a
+    subprocess, against the same model through MemoryFrames in process."""
+    from pfnl_tpu_torch import native
+    from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor
+    from pfnl_tpu_torch.models.pfnl import PFNL
+
+    # `python -m pfnl_tpu_torch test ...` with cv2 and PIL blocked in its process
+    block = ("import runpy, sys; sys.modules.update(dict.fromkeys(%r)); "
+             "runpy.run_module('pfnl_tpu_torch', run_name='__main__', alter_sys=True)" % (BLOCKED,))
+    cmd = [sys.executable, "-c", block, "test", "pfnl", "--data", root,
+           "--compute-dtype", "bfloat16", "--seed", str(SEED),
+           "--save-dir", os.path.join(os.path.dirname(root), "no_checkpoint")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"15c: {' '.join(cmd[3:])} exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+             f"{proc.stderr[-3000:]}")
+    spent = re.findall(r"spent (\S+) s in total and (\S+) s in average", proc.stdout)
+    outs = sorted(glob.glob(os.path.join(root, "clip", "pfnl", "*.png")))
+    if len(spent) != 1 or len(outs) != CLIP_FRAMES:
+        fail(f"15c: {len(outs)} SR PNGs and {len(spent)} timing lines:\n{proc.stdout[-2000:]}")
+    disk = native.decode_crop_batch(outs, threads=4)
+
+    model = PFNL(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
+    model = model.cuda().eval()
+    mem = MemoryFrames({f"clip/truth/{i:04d}.png": clip[i] for i in range(CLIP_FRAMES)})
+    chunk_s = Predictor(model, batch_windows=BATCH_WINDOWS, source=mem,
+                        sink=mem).test_video_truth("clip", name="sr")
+    in_mem = np.stack([mem.read(p) for p in mem.list("clip/sr")])
+    same = disk.shape == in_mem.shape and np.array_equal(disk, in_mem)
+    disk_fps = BATCH_WINDOWS / float(spent[0][1])
+    mem_fps = (CLIP_FRAMES - BATCH_WINDOWS) / float(np.sum(chunk_s[1:]))
+    print(f"[15c test from disk] `-m pfnl_tpu_torch {' '.join(cmd[3:5])} --compute-dtype "
+          f"bfloat16` (cv2 and PIL blocked): {len(outs)} SR PNGs "
+          f"{disk.shape[1]}x{disk.shape[2]} decode bitwise equal to the in-process "
+          f"MemoryFrames frames: {same}; delivered {disk_fps:.2f} HR frames/s from disk (PNG "
+          f"decode, encode and write on the host thread) beside {mem_fps:.2f} in memory here and "
+          f"phase 4's {fps_4:.2f}; {wall:.1f} s of subprocess on {card}", flush=True)
+    if not same:
+        fail("15c: the PNGs `test` wrote differ from the in-memory path's frames")
+
+
+def _disk_train_eval(card, root):
+    """15d: prepare, train and eval through __main__.main in this process,
+    so their launches count; returns them."""
+    from pfnl_tpu_torch.__main__ import main as cli
+    from pfnl_tpu_torch.config import preset
+    from pfnl_tpu_torch.data.frames import PngFrames
+    from pfnl_tpu_torch.data.manifest import load_manifest
+    from pfnl_tpu_torch.data.pipeline import TrainPipeline
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    store = PngFrames()
+    for k in range(DISK_VAL_SEQS):
+        val = synthetic_clip(DISK_VAL_FRAMES, *DISK_VAL_HW, SEED + 100 + k)
+        for i, img in enumerate(val):
+            store.write(os.path.join(root, f"val_{k}", "truth", f"{i:04d}.png"), img)
+    t0 = time.perf_counter()
+    cli(["prepare", "--root", root])
+    prep_s = time.perf_counter() - t0
+    blur = sorted(glob.glob(os.path.join(root, "*", "blur4", "*.png")))
+    n_want = CLIP_FRAMES + DISK_VAL_SEQS * DISK_VAL_FRAMES
+    if len(blur) != n_want or store.read(blur[0]).shape != (H, W, 3):
+        fail(f"15d: prepare wrote {len(blur)} blur4/ PNGs, want {n_want} of {H}x{W}")
+
+    fl_train = os.path.join(root, "filelist_train.txt")
+    fl_val = os.path.join(root, "filelist_val.txt")
+    ck = os.path.join(os.path.dirname(root), "ck")
+    losses, step = [], Trainer.step
+
+    def recording_step(self, *a, **k):
+        out = step(self, *a, **k)
+        losses.append(float(out["loss"]))
+        return out
+
+    Trainer.step = recording_step
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        cli(["train", "pfnl", "--train-list", fl_train, "--steps", str(DISK_TRAIN_STEPS),
+             "--save-every", str(DISK_SAVE_EVERY), "--no-eval", "--save-dir", ck])
+    finally:
+        Trainer.step = step
+    train_s = time.perf_counter() - t0
+    train_counts = {k: launches[k] for k in KERNELS}
+
+    cfg = preset("pfnl")  # what `train pfnl` ran: its batch, LR crop and producer
+    pipe = TrainPipeline(load_manifest(fl_train), cfg.producer, cfg.num_frames, cfg.in_size,
+                         cfg.scale, cfg.batch_size, seed=SEED, num_threads=1, prefetch=1)
+    try:
+        pipe.get_batch()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pipe.get_batch()
+        batch_ms = (time.perf_counter() - t0) * 1e3 / 3
+    finally:
+        pipe.close()
+
+    log = os.path.join(ck, "pfnl.txt")
+    before = open(log).read().splitlines() if os.path.exists(log) else []
+    reset_launches()
+    cli(["eval", "pfnl", "--save-dir", ck, "--eval-list", fl_val])
+    eval_counts = {k: launches[k] for k in KERNELS}
+    after = open(log).read().splitlines()
+    print(f"[15d prepare, train, eval from disk] prepare rendered {len(blur)} blur4/ PNGs in "
+          f"{prep_s:.1f} s; train pfnl {DISK_TRAIN_STEPS} steps from {fl_train} in {train_s:.1f} "
+          f"s, losses {[f'{v:.5f}' for v in losses]}, launches "
+          f"{ {k: v for k, v in train_counts.items() if v} }; TrainPipeline (decode_crop_batch) "
+          f"{batch_ms:.1f} ms a batch of {cfg.batch_size} x {cfg.num_frames} frames on one host "
+          f"thread; eval appended {after[len(before):]}, launches "
+          f"{ {k: v for k, v in eval_counts.items() if v} } on {card}", flush=True)
+    if len(losses) != DISK_TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"15d: training losses {losses}")
+    if not all(train_counts[k] for k in PFNL_KERNELS[1:]):
+        fail(f"15d: training from disk did not launch kernels 2-6: {train_counts}")
+    eval_want = {k: 0 for k in KERNELS}
+    eval_want.update(nonlocal_flash=1, pfrb_a=20, pfrb_b=20, pfnl_tail=1)
+    if len(after) != len(before) + 1 or eval_counts != eval_want:
+        fail(f"15d: eval appended {after[len(before):]} with launches {eval_counts}")
+    return {k: train_counts[k] + eval_counts[k] for k in KERNELS}
+
+
+def phase_frames_on_disk(card, fps_4):
+    """15: the PNG codec, then test, prepare, train and eval from a
+    directory of PNGs on disk (a temporary one, removed after; checkpoints
+    beside it), with cv2 and PIL blocked, so that every PNG is read and
+    written by the port's codec.  Returns the launches of 15d."""
+    base = tempfile.mkdtemp(prefix="pfnl_disk_")
+    root = os.path.join(base, "data")  # the dataset: every directory in it a sequence
+    installed = []
+    for mod in ("cv2", "PIL"):
+        try:
+            installed.append(f"{mod} {__import__(mod).__version__}")
+        except ImportError:
+            installed.append(f"no {mod}")
+    saved = {m: sys.modules.get(m) for m in BLOCKED}
+    sys.modules.update(dict.fromkeys(BLOCKED))
+    try:
+        clip = synthetic_clip(CLIP_FRAMES, H * 4, W * 4, SEED)
+        _disk_codec(card, root, clip, ", ".join(installed))
+        _disk_test(card, root, clip, fps_4)
+        return _disk_train_eval(card, root)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        for m, was in saved.items():
+            if was is None:
+                del sys.modules[m]
+            else:
+                sys.modules[m] = was
+
+
+def phase_sharded(card, lrs):
+    """16: sharded_forward at phase 4's configuration, batch 4, on [cuda:0]
+    * data * space for each of SHARDED_LAYOUTS: K1-K4 on every band, the SR
+    against the float32 plain path and the unsharded kernel path, forward
+    ms and peak memory beside the unsharded forward's.  cuDNN picks another
+    algorithm for conv0 on a band than on the whole image (a bf16 ulp here
+    and there, which the 20 blocks spread into the output's roundings), so
+    the unsharded kernel path is held at SHARDED_TOL with conv0 on
+    PyTorch's own convolution on both sides (cuDNN off; every other op is
+    the same) and printed with cuDNN.  Returns the launches of the checked
+    calls (cuDNN on)."""
+    from pfnl_tpu_torch.infer.predictor import _clipped_windows
+    from pfnl_tpu_torch.models.pfnl import PFNL
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.parallel.spmd import HALO, row_bands, sharded_forward
+
+    model = PFNL(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
+    model = model.cuda().eval()
+    x = torch.from_numpy(lrs[_clipped_windows(CLIP_FRAMES, T)[:BATCH_WINDOWS]]).cuda()
+    ref_model = PFNL(dtype=torch.float32, num_blocks=model.num_blocks).cuda().eval()
+    ref_model.load_state_dict(model.state_dict())
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    with torch.inference_mode():
+        plain = ref_model(x, plain=True)
+        del ref_model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = model(x)
+        torch.cuda.synchronize()
+        base_peak = torch.cuda.max_memory_allocated()
+        base_ms = cuda_time_ms(lambda: model(x))
+        with torch.backends.cudnn.flags(enabled=False):
+            want_native = model(x)
+        # conv0 alone, the first band of two against the whole image's rows, under cuDNN
+        inp = model.frame_concat(x)
+        r1 = row_bands(H, 2)[0][1]
+        band = model.embed(inp[:, :r1 + HALO].contiguous())[:, :, :r1]
+        whole = model.embed(inp)[:, :, :r1]
+        flips = int((band != whole).sum())
+        print(f"[16 sharded_forward] conv0 (cuDNN) on rows 0..{r1 + HALO} against the whole "
+              f"image's: {flips} of {band.numel()} outputs differ, rel L2 {rel(band, whole):.3e}",
+              flush=True)
+        del inp, band, whole
+
+    total = collections.Counter()
+    for data, space in SHARDED_LAYOUTS:
+        n = data * space
+        fn = sharded_forward(model, [torch.device("cuda", 0)] * n, space=space)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        got = fn(x)
+        torch.cuda.synchronize()
+        counts = {k: launches[k] for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        ms = cuda_time_ms(lambda: fn(x))
+        with torch.backends.cudnn.flags(enabled=False):
+            got_native = fn(x)
+        want_counts = {k: 0 for k in KERNELS}
+        want_counts.update(nonlocal_flash=n, pfrb_a=model.num_blocks * n,
+                           pfrb_b=model.num_blocks * n, pfnl_tail=n)
+        ok_shape = got.shape == want.shape and bool(torch.isfinite(got).all())
+        r_n, r_k, r_p = rel(got_native, want_native), rel(got, want), rel(got, plain)
+        print(f"[16 sharded_forward] data {data} x space {space} on [cuda:0] * {n}, bands "
+              f"{row_bands(H, space)} of {H} LR rows, batch {BATCH_WINDOWS}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }; vs the unsharded kernel path, conv0 "
+              f"on PyTorch's own conv: rel L2 {r_n:.3e} (tolerance {SHARDED_TOL:.0e}), bitwise "
+              f"{torch.equal(got_native, want_native)}; with cuDNN: rel L2 {r_k:.3e}, bitwise "
+              f"{torch.equal(got, want)}; vs the f32 plain path {r_p:.3e} (tolerance "
+              f"{E2E_TOL:.0e}); forward {ms:.3f} ms beside the unsharded {base_ms:.3f} ms here "
+              f"({ms / base_ms:.3f}x); peak memory {peak / 2**30:.2f} GiB (unsharded "
+              f"{base_peak / 2**30:.2f}) on {card}", flush=True)
+        if counts != want_counts:
+            fail(f"16: launches {counts}, want {want_counts}")
+        if not ok_shape or r_n > SHARDED_TOL or r_p > E2E_TOL:
+            fail("16: the sharded forward disagrees with the unsharded one")
+        total.update(counts)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -2361,7 +2705,7 @@ def main():
     phase_build()
     results = phase_kernels(name)
     results.update(phase_splat_kernels(name))
-    counts = phase_end_to_end(name)
+    counts, fps_4 = phase_end_to_end(name)
     results.update(phase_bwd_kernels(name))
     phase_train_gradients(name)
     train = phase_train_fit(name)
@@ -2380,6 +2724,8 @@ def main():
     easyflow_counts = phase_easyflow_flownet(smi)
     export_counts = phase_export(smi, lrs)
     multi_counts = phase_multi_gpu(smi, train["steps_per_s"])
+    disk_counts = phase_frames_on_disk(smi, fps_4)
+    sharded_counts = phase_sharded(smi, lrs)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
@@ -2388,7 +2734,7 @@ def main():
 
     path_launches = {k: counts[k] + train_counts[k] + y_counts[k] + frvsr_counts[k]
                      + flow_counts[k] + eval_counts[k] + easyflow_counts[k] + export_counts[k]
-                     + multi_counts[k] for k in TPU_KERNEL}
+                     + multi_counts[k] + disk_counts[k] + sharded_counts[k] for k in TPU_KERNEL}
     path_launches.update(duf_block=duf_counts["duf_block"] + eval_counts["duf_block"]
                          + duf_train_counts["duf_block"] + export_counts["duf_block"],
                          duf_dense=pallas_counts["duf_dense"] + duf_train_counts["duf_dense"])

@@ -1,9 +1,10 @@
 """Frame stores: where the port reads frames from and writes them to.
 
 `PngFrames` (the default) is PNG files on disk through the port's
-utils/image_io.py (cv2 or PIL, imported on first use).  `MemoryFrames`
-holds uint8 [H,W,3] frames in a dict keyed by path, for machines without a
-PNG codec.  Both offer list(directory), read(path), write(path, img) and
+utils/image_io.py (cv2, else PIL, else the port's native codec, chosen on
+first use; `TrainPipeline` decodes its windows with the native codec).
+`MemoryFrames` holds uint8 [H,W,3] frames in a dict keyed by path, for
+frames that never touch the disk.  Both offer list(directory), read(path), write(path, img) and
 sequences(root), the sequence directories of a dataset directory.
 """
 

@@ -3,9 +3,11 @@
 Host side: `TrainPipeline`, a small thread pool that samples (sequence,
 window, crop) uniformly, reads frames through a frame store
 (data/frames.py) and crops them into uint8 numpy batches (the reference
-used TF1 queue runners with 3 threads, model/base_model.py:196-198).  The
-sampler draws from numpy exactly as the JAX package's does, so one seed
-gives both packages the same batches.
+used TF1 queue runners with 3 threads, model/base_model.py:196-198).  PNG
+files on disk (`PngFrames`) are decoded and cropped a window at a time by
+the port's native codec (native/), as the JAX pipeline does with its own;
+`MemoryFrames` crops in numpy.  The sampler draws from numpy exactly as
+the JAX package's does, so one seed gives both packages the same batches.
 
 Device side: `device_augment_and_degrade` turns a uint8 batch on the
 device into float training tensors: per-sample flips and transpose drawn
@@ -26,6 +28,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from pfnl_tpu_torch import native
 from pfnl_tpu_torch.data.frames import PngFrames
 from pfnl_tpu_torch.data.manifest import Sequence
 from pfnl_tpu_torch.ops.degrade import downsample
@@ -97,6 +100,7 @@ class TrainPipeline:
         self.gt_size = in_size * scale
         self.batch_size = batch_size
         self.source = source or PngFrames()
+        self._native = isinstance(self.source, PngFrames)
         self._size_cache: Dict[str, tuple] = {}
         self._size_lock = threading.Lock()
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
@@ -113,12 +117,16 @@ class TrainPipeline:
         with self._size_lock:
             size = self._size_cache.get(path)
         if size is None:
-            size = self.source.read(path).shape[:2]
+            size = native.png_size(path) if self._native else self.source.read(path).shape[:2]
             with self._size_lock:
                 self._size_cache[path] = size
         return size
 
     def _decode_window(self, paths, y0: int, x0: int, size: int) -> np.ndarray:
+        if self._native:
+            n = len(paths)
+            return native.decode_crop_batch(list(paths), [y0] * n, [x0] * n, (size, size),
+                                            threads=min(4, n))
         return np.stack([self.source.read(p)[y0:y0 + size, x0:x0 + size] for p in paths])
 
     def _sample_one(self, rng) -> Dict[str, np.ndarray]:

@@ -7,8 +7,8 @@ For every sequence directory under a dataset root, compares
 `<seq>/<result_name>/NNNN.png` against `<seq>/truth/NNNN.png` on the
 Y channel of the uint8 images and reports per-sequence and average
 PSNR/SSIM in the README's table layout.  Frames are read through a frame
-store (data/frames.py): PNG files by default, or `MemoryFrames` on a
-machine without a PNG codec.
+store (data/frames.py): PNG files by default, or `MemoryFrames` for
+frames held in memory.
 """
 
 import os

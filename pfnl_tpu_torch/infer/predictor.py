@@ -27,8 +27,8 @@ differs is read from the model:
 
 Frames are read through `source` and written through `sink`, frame stores
 of data/frames.py: by default `PngFrames`, PNG files on disk;
-`MemoryFrames` holds them in a dict instead, for machines without a PNG
-codec.
+`MemoryFrames` holds them in a dict instead, for frames that never touch
+the disk.
 """
 
 import os

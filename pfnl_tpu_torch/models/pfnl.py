@@ -80,34 +80,47 @@ class PFNL(nn.Module):
                 getattr(self, f"conv2f_{i}_kernel"), getattr(self, f"conv2b_{i}_kernel"),
                 getattr(self, f"conv2f_{i}_bias"))
 
+    def tail_params(self):
+        """(Wm1, bm1, Wm2, bm2) of the merge tail."""
+        return (self.convmerge1_kernel, self.convmerge1_bias, self.convmerge2_kernel,
+                self.convmerge2_bias)
+
+    def frame_concat(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N,T,h,w,3] -> the frames concatenated along channels [N,h,w,3T]
+        in the compute dtype."""
+        n, t, h, w, c = x.shape
+        if t != self.num_frames:
+            raise ValueError(f"expected {self.num_frames} frames, got {t}")
+        return x.to(self.dtype).permute(0, 2, 3, 1, 4).reshape(n, h, w, t * c)
+
+    def embed(self, inp0: torch.Tensor) -> torch.Tensor:
+        """The shared 5x5 conv0 (+lrelu) over each frame of inp0 [N,h,w,3T],
+        frames folded into the batch -> feat [N,T,h,w,mf]."""
+        n, h, w, _ = inp0.shape
+        t, c = self.num_frames, 3
+        frames = inp0.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4).reshape(n * t, h, w, c)
+        feat = leaky_relu(conv2d_same(frames, self.conv0.kernel) + self.conv0.bias.to(self.dtype))
+        return feat.reshape(n, t, h, w, self.mf).contiguous()
+
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x [N,T,h,w,3] -> SR [N,1,4h,4w,3] float32.  On a CUDA tensor the
         attention (above the dense limit), the PFRBs and the tail run the
         port's kernels, and a backward runs kernels 5 and 6, unless
         plain=True asks for their plain PyTorch versions under plain
         autograd (the reference the kernels are checked against on the
-        card)."""
+        card).  parallel/spmd.sharded_forward runs the same stages band by
+        band."""
         n, t, h, w, c = x.shape
-        if t != self.num_frames:
-            raise ValueError(f"expected {self.num_frames} frames, got {t}")
-        dt, mf = self.dtype, self.mf
         run_chain, run_tail = (pfrb_chain_ref, pfnl_tail_ref) if plain else (pfrb_chain, merge_tail)
-        xc = x.to(dt)
 
         # non-local residual over the frame-concat image
-        inp0 = xc.permute(0, 2, 3, 1, 4).reshape(n, h, w, t * c)
+        inp0 = self.frame_concat(x)
         nl = self.nlblock_0(space_to_depth(inp0, 2), plain=plain)
         inp0 = inp0 + depth_to_space(nl, 2)
 
-        # shared 5x5 conv0, frames folded into the batch
-        frames = inp0.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4).reshape(n * t, h, w, c)
-        feat = leaky_relu(conv2d_same(frames, self.conv0.kernel) + self.conv0.bias.to(dt))
-        feat = feat.reshape(n, t, h, w, mf).contiguous()
+        feat = run_chain(self.embed(inp0), [self.block_params(i) for i in range(self.num_blocks)])
 
-        feat = run_chain(feat, [self.block_params(i) for i in range(self.num_blocks)])
-
-        folded = run_tail(feat, self.convmerge1_kernel, self.convmerge1_bias,
-                          self.convmerge2_kernel, self.convmerge2_bias)
-        bic = resize_bicubic(xc[:, t // 2], (h * self.scale, w * self.scale))
+        folded = run_tail(feat, *self.tail_params())
+        bic = resize_bicubic(x[:, t // 2].to(self.dtype), (h * self.scale, w * self.scale))
         sr = (compose_d2s4(folded) + bic).float()
         return sr[:, None]

@@ -58,6 +58,21 @@ def _resize_matrix(n_in: int, n_out: int, method: str, mapping: str) -> np.ndarr
     return w.astype(np.float32)
 
 
+def _matrix(n_in, n_out, method, mapping, device, dtype):
+    return on_device(("resize", n_in, n_out, method, mapping),
+                     lambda: _resize_matrix(n_in, n_out, method, mapping), device, dtype)
+
+
+def _compute_dtype(x):
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+
+
+def _apply(wh, ww, x):
+    y = torch.einsum("oh,nhwc->nowc", wh, x.to(wh.dtype))
+    y = torch.einsum("pw,nowc->nopc", ww, y)
+    return y.to(x.dtype)
+
+
 def resize_images(x: torch.Tensor, size, method: str = "bilinear",
                   mapping: str = "tf1") -> torch.Tensor:
     """[N,H,W,C] or [N,T,H,W,C] -> spatial size (H',W'); a 5-D input folds
@@ -68,17 +83,29 @@ def resize_images(x: torch.Tensor, size, method: str = "bilinear",
         y = resize_images(x.reshape((n * t,) + x.shape[2:]), size, method, mapping)
         return y.reshape((n, t) + y.shape[1:])
     out_h, out_w = int(size[0]), int(size[1])
-    n, h, w, c = x.shape
-    compute = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    _, h, w, _ = x.shape
+    compute = _compute_dtype(x)
+    wh = _matrix(h, out_h, method, mapping, x.device, compute)
+    ww = _matrix(w, out_w, method, mapping, x.device, compute)
+    return _apply(wh, ww, x)
 
-    def matrix(n_in, n_out):
-        return on_device(("resize", n_in, n_out, method, mapping),
-                         lambda: _resize_matrix(n_in, n_out, method, mapping), x.device, compute)
 
-    wh, ww = matrix(h, out_h), matrix(w, out_w)
-    y = torch.einsum("oh,nhwc->nowc", wh, x.to(compute))
-    y = torch.einsum("pw,nowc->nopc", ww, y)
-    return y.to(x.dtype)
+def resize_rows(x: torch.Tensor, full_h: int, row0: int, size, out_rows,
+                method: str = "bicubic", mapping: str = "tf1") -> torch.Tensor:
+    """Output rows out_rows = (lo, hi) of `resize_images(image, size)` for an
+    image of full_h rows of which x [N,h,W,C] holds rows row0..row0+h (a
+    band of rows and its halo, parallel/spmd.py); raises where those output
+    rows read a row x does not hold.  The products are resize_images'
+    with the rows of its height matrix cut to the band."""
+    lo, hi = out_rows
+    h = x.shape[1]
+    full = _resize_matrix(full_h, int(size[0]), method, mapping)
+    if full[lo:hi, :row0].any() or full[lo:hi, row0 + h:].any():
+        raise ValueError(f"output rows {lo}..{hi} read input rows outside {row0}..{row0 + h}")
+    compute = _compute_dtype(x)
+    wh = _matrix(full_h, int(size[0]), method, mapping, x.device, compute)[lo:hi, row0:row0 + h]
+    ww = _matrix(x.shape[2], int(size[1]), method, mapping, x.device, compute)
+    return _apply(wh, ww, x)
 
 
 def resize_bicubic(x: torch.Tensor, size) -> torch.Tensor:

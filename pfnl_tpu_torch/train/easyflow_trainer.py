@@ -13,7 +13,7 @@ as the JAX trainer draws them (a sequence, a first frame, a crop, per
 sample), so the same seed and frames give the same crops.  Frames come from
 `<seq>/<subdir>/*.png` of the filelist's sequences (`truth/` where there is
 no `subdir`), or from in-memory sequences (`sequences=`, read through the
-`source=` frame store: MemoryFrames on a machine without a PNG codec).
+`source=` frame store, MemoryFrames say).
 
 A checkpoint is `<save_dir>/step_<step>.pt` holding the EasyFlow
 state_dict; `restore_easyflow_params` loads the newest into an SR model's

@@ -900,3 +900,29 @@ def test_nonlocal_attention_sp_at_world_size_1_is_kernel_1(gen):
             assert torch.equal(got, nonlocal_flash(th, ph, g))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("data,space", [(1, 2), (2, 2)])
+def test_sharded_forward_runs_kernels_1_to_4_on_every_band(gen, data, space):
+    """PFNL, 2 blocks, bf16, LR 130x132 (65x66 non-local positions, so the
+    unsharded forward runs kernel 1 too) over [cuda:0] * data * space: kernel
+    1 once a band, kernels 2 and 3 once a block a band, kernel 4 once a band,
+    and the unsharded kernel path's SR within relative L2 1e-3 with conv0 on
+    PyTorch's own convolution on both sides (cuDNN picks another conv0
+    algorithm for a band than for the whole image)."""
+    from pfnl_tpu_torch.parallel.spmd import sharded_forward
+
+    model = PFNL(num_blocks=2, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    x = torch.rand((2 * data, 7, 130, 132, 3), generator=gen, device="cuda")
+    fn = sharded_forward(model, ["cuda"] * (data * space), space=space)
+    reset_launches()
+    got = fn(x)
+    cells = data * space
+    assert dict(launches) == {"nonlocal_flash": cells, "pfrb_a": 2 * cells, "pfrb_b": 2 * cells,
+                              "pfnl_tail": cells}
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=False):
+        got = fn(x)
+        ref = model(x)
+    assert got.shape == ref.shape == (2 * data, 1, 520, 528, 3)
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-3
