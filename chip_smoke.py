@@ -200,12 +200,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      for a band differs from the whole image's (conv0's outputs that differ
      printed); forward ms (CUDA events) and peak memory beside the
      unsharded forward's.
+ 17. parallel/spmd.sharded_forward on the six other families at phases 6,
+     7b and 8's configurations (full width, bf16, seeded weights and
+     BatchNorm statistics; batch 4 windows at LR 180x320, FRVSR two clips
+     of 10 frames; DRVSR's full form), as (data 1, space 2), (1, 4) and (2, 2)
+     on [cuda:0] * n, then once at LR 540x960 (a 4K output), batch 1, (1,
+     4): overlapped bands, each running the family's forward on its rows
+     and its halo (FRVSR a step at a time, the estimate's rows gathered
+     from the bands that own them).  Launches a forward (K7 once a band,
+     FRVSR 9 times; K8 once; K9 24 times), the SR against the float32
+     plain path at the limit its serving phase uses (bf16 SR within
+     E2E_TOL and the trunk's part within TRUNK_TOL; FRVSR: its first frame,
+     the recurrence's drift printed), at (1, 4) the float32 kernel path
+     within TOL / TRUNK_TOL, the SR against the unsharded kernel path (one
+     band, the whole image) printed: relative L2, maximum, bitwise;
+     forward ms (CUDA events) and peak memory beside the unsharded
+     forward's; then one DUF-52L window at conv3d_impl="pallas", K10 24
+     times a band at (1, 2).
 
 The second-to-last line is a JSON summary of the kernels: launches from
 the path that runs each (phase 4 plus 5c for kernels 1-6, 6 and 8 for
 7, 6 for 8, 7b for 9, 7c for 10; and phase 9b's kernel path for 7 and 8,
 phase 10 for 1-4 and 7-9, 11b's kernel-10 path for 10, 11c for 9, 12b
-for 7, 13 for 1-4, 7 and 9, 14a-c for 1-6, 15d for 1-6, 16 for 1-4; each
+for 7, 13 for 1-4, 7 and 9, 14a-c for 1-6, 15d for 1-6, 16 for 1-4, 17
+for 7-10; each
 counted where the custom op's CUDA kernel launches); errors and times at the shape named in
 TIMED (bf16 but for kernels 5 and 6, float32 at the training shape);
 `bound_ms`, the least time the card could take for the same work (the larger of the
@@ -339,6 +357,13 @@ BLOCKED = ("cv2", "PIL", "PIL.Image")
 # ops on fewer rows: bitwise expected)
 SHARDED_LAYOUTS = [(1, 2), (1, 4), (2, 2)]
 SHARDED_TOL = 1e-3
+# phase 17: the other families' launches a band of one sharded forward (FRVSR's 10 frames:
+# K7 once a step after the first; DUF-52L: K9 once a dense block), and the 4K layout
+SHARDED_FAMILIES = {"vespcn": {"bounded_splat": 1}, "mcresnet": {"bounded_splat": 1},
+                    "ltdvsr": {"bounded_splat": 1}, "drvsr": {"spmc_splat": 1},
+                    "duf": {"duf_block": 24}, "frvsr": {"bounded_splat": 9}}
+FRVSR_SHARDED_FRAMES = 10
+SHARDED_4K = (1, 4, 540, 960)           # data, space, LR rows and columns: a 2160x3840 output
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
@@ -2692,6 +2717,160 @@ def phase_sharded(card, lrs):
     return total
 
 
+def _family_inputs(fam, model, lrs):
+    """Phase 6 / 7b / 8's input on the card: batch 4 windows of the clip, FRVSR
+    its first 10 frames and its next 10 (a batch of two clips, which data 2
+    splits)."""
+    from pfnl_tpu_torch.infer.predictor import _clipped_windows
+
+    if fam == "frvsr":
+        n = FRVSR_SHARDED_FRAMES
+        return torch.from_numpy(np.stack([lrs[:n], lrs[n:2 * n]])).cuda()
+    idx = _clipped_windows(CLIP_FRAMES, model.num_frames)[:BATCH_WINDOWS]
+    return torch.from_numpy(lrs[idx]).cuda()
+
+
+def _plain_reference(fam, model32, x):
+    """The float32 plain path's SR and the part of it the family's network
+    computes (SR less the bicubic of the centre Y, where the family adds it)."""
+    from pfnl_tpu_torch.ops.resize import resize_bicubic
+
+    out = model32(x, plain=True, warped_lr=False) if fam == "drvsr" else model32(x, plain=True)
+    if not isinstance(out, dict):
+        return out, out
+    sr = out["sr"]
+    if fam in Y_FAMILIES and Y_FAMILIES[fam][1]:
+        return sr, sr - resize_bicubic(out["ref_y"], tuple(sr.shape[2:4]))[:, None]
+    return sr, sr
+
+
+def _against_plain(fam, got, ref, trunk):
+    """(rel L2 against the f32 plain path, its limit, what was compared): the
+    trunk's part for the Y families (phase 6), the SR for DUF (7b), FRVSR's
+    first frame (8 holds each step; the recurrence's drift is printed)."""
+    if fam == "frvsr":
+        return _rel(got[:, :1], ref[:, :1]), f"frame 0 (all frames {_rel(got, ref):.3e})"
+    if fam == "duf":
+        return _rel(got, ref), "SR"
+    return ((got.float() - ref).norm() / trunk.norm()).item(), f"trunk part (SR {_rel(got, ref):.3e})"
+
+
+def _sharded_case(fam, model, model32, x, layouts, card, tag):
+    """17: the bf16 sharded forward at each (data, space) of `layouts` against
+    the unsharded kernel path (one band, the whole image) and the float32
+    plain path, its launches, ms and peak memory; at (1, 4) the float32
+    kernel path too.  Returns the launches of the checked bf16 calls."""
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.parallel.spmd import row_bands, row_geometry, sharded_forward
+
+    dev = torch.device("cuda", 0)
+    geo = row_geometry(model)
+    h = x.shape[2]
+    tol = {"bfloat16": E2E_TOL if fam in ("duf", "frvsr") else TRUNK_TOL["bfloat16"],
+           "float32": TOL["float32"] if fam in ("duf", "frvsr") else TRUNK_TOL["float32"]}
+    with torch.inference_mode():
+        ref, trunk = _plain_reference(fam, model32, x)
+        unsharded = sharded_forward(model, [dev], space=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = unsharded(x)
+        torch.cuda.synchronize()
+        base_peak = torch.cuda.max_memory_allocated()
+        base_ms = cuda_time_ms(lambda: unsharded(x))
+    total = collections.Counter()
+    for data, space in layouts:
+        n = data * space
+        fn = sharded_forward(model, [dev] * n, space=space)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            got = fn(x)
+            torch.cuda.synchronize()
+            counts = {k: launches[k] for k in KERNELS}
+            peak = torch.cuda.max_memory_allocated()
+            ms = cuda_time_ms(lambda: fn(x))
+        want_counts = {k: 0 for k in KERNELS}
+        want_counts.update({k: v * n for k, v in SHARDED_FAMILIES[fam].items()})
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"17 {fam}: SR {tuple(got.shape)}, want {tuple(want.shape)}, or non-finite")
+        rel, what = _against_plain(fam, got, ref, trunk)
+        whole = _rel(got, ref)
+        print(f"[17 {tag}] data {data} x space {space} on [cuda:0] * {n}, bands "
+              f"{row_bands(h, space, geo.align, geo.ragged)} of {h} LR rows (halo {geo.halo}, "
+              f"align {geo.align}), input {tuple(x.shape)}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }; vs the f32 plain path, {what}: rel "
+              f"L2 {rel:.3e} (tolerance {tol['bfloat16']:.0e}); vs the unsharded kernel path "
+              f"rel L2 {_rel(got, want):.3e}, max abs {(got - want).abs().max().item():.3e}, "
+              f"bitwise {torch.equal(got, want)}; forward {ms:.3f} ms beside the unsharded "
+              f"{base_ms:.3f} ms ({ms / base_ms:.3f}x); peak memory {peak / 2**30:.2f} GiB "
+              f"(unsharded {base_peak / 2**30:.2f}) on {card}", flush=True)
+        if counts != want_counts:
+            fail(f"17 {fam}: launches {counts}, want {want_counts}")
+        if rel > tol["bfloat16"] or (fam != "frvsr" and whole > E2E_TOL):
+            fail(f"17 {fam}: the sharded forward disagrees with the f32 plain path")
+        total.update(counts)
+        del got
+    if (1, 4) in layouts:
+        with torch.inference_mode():
+            got32 = sharded_forward(model32, [dev] * 4, space=4)(x)
+        torch.cuda.synchronize()
+        rel32 = (_rel(got32, ref) if fam in ("duf", "frvsr")
+                 else ((got32 - ref).norm() / trunk.norm()).item())
+        print(f"[17 {tag}] float32 kernels, data 1 x space 4, vs the f32 plain path "
+              f"({'SR' if fam in ('duf', 'frvsr') else 'trunk part'}): rel L2 {rel32:.3e} "
+              f"(tolerance {tol['float32']:.0e})", flush=True)
+        if rel32 > tol["float32"]:
+            fail(f"17 {fam}: the float32 sharded forward disagrees with the f32 plain path")
+    return total
+
+
+def phase_sharded_families(card, lrs):
+    """17: sharded_forward on VESPCN, MCResNet, LTDVSR, DRVSR, DUF-52L and
+    FRVSR (see the module docstring); returns the launches of the checked
+    bf16 calls."""
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.models import DUF, MODEL_REGISTRY
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.parallel.spmd import sharded_forward
+
+    data4k, space4k, h4k, w4k = SHARDED_4K
+    total = collections.Counter()
+    for fam in SHARDED_FAMILIES:
+        model = seeded_model(fam, torch.bfloat16, SEED).eval()
+        model32 = MODEL_REGISTRY[fam](dtype=torch.float32).cuda().eval()
+        model32.load_state_dict(model.state_dict())
+        x = _family_inputs(fam, model, lrs)
+        total.update(_sharded_case(fam, model, model32, x, SHARDED_LAYOUTS, card, fam))
+        frames = FRVSR_SHARDED_FRAMES if fam == "frvsr" else model.num_frames
+        x4k = torch.from_numpy(synthetic_clip(frames, h4k, w4k, SEED + 1)[None]).cuda() / 255.0
+        total.update(_sharded_case(fam, model, model32, x4k, [(data4k, space4k)], card,
+                                   f"{fam} 4K"))
+        if fam == "duf":   # one window with kernel 10 for each growth conv, two bands
+            pallas = DUF(dtype=torch.bfloat16, conv3d_impl="pallas").cuda().eval()
+            pallas.load_state_dict(model.state_dict())
+            win = x[:1]
+            with torch.inference_mode():
+                ref = model32(win, plain=True)
+                reset_launches()
+                got = sharded_forward(pallas, [torch.device("cuda", 0)] * 2, space=2)(win)
+                torch.cuda.synchronize()
+            counts = {k: launches[k] for k in KERNELS}
+            want = {k: 0 for k in KERNELS}
+            want["duf_dense"] = 2 * len(pallas.G.modes)
+            rel = _rel(got, ref)
+            print(f"[17 duf pallas] one window, data 1 x space 2: launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; SR vs the f32 plain path rel L2 "
+                  f"{rel:.3e} (tolerance {E2E_TOL:.0e}) on {card}", flush=True)
+            if counts != want or rel > E2E_TOL or not torch.isfinite(got).all():
+                fail(f"17 duf pallas: launches {counts} (want {want}) or rel L2 {rel:.3e}")
+            total.update(counts)
+            del pallas
+        del model, model32, x, x4k
+        torch.cuda.empty_cache()
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -2726,6 +2905,7 @@ def main():
     multi_counts = phase_multi_gpu(smi, train["steps_per_s"])
     disk_counts = phase_frames_on_disk(smi, fps_4)
     sharded_counts = phase_sharded(smi, lrs)
+    family_counts = phase_sharded_families(smi, lrs)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
@@ -2734,10 +2914,13 @@ def main():
 
     path_launches = {k: counts[k] + train_counts[k] + y_counts[k] + frvsr_counts[k]
                      + flow_counts[k] + eval_counts[k] + easyflow_counts[k] + export_counts[k]
-                     + multi_counts[k] + disk_counts[k] + sharded_counts[k] for k in TPU_KERNEL}
+                     + multi_counts[k] + disk_counts[k] + sharded_counts[k] + family_counts[k]
+                     for k in TPU_KERNEL}
     path_launches.update(duf_block=duf_counts["duf_block"] + eval_counts["duf_block"]
-                         + duf_train_counts["duf_block"] + export_counts["duf_block"],
-                         duf_dense=pallas_counts["duf_dense"] + duf_train_counts["duf_dense"])
+                         + duf_train_counts["duf_block"] + export_counts["duf_block"]
+                         + family_counts["duf_block"],
+                         duf_dense=pallas_counts["duf_dense"] + duf_train_counts["duf_dense"]
+                         + family_counts["duf_dense"])
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],
                     launches=path_launches[k], **{f: results[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -24,7 +24,7 @@ from pfnl_tpu_torch.models.flows import EasyFlow, YFamily, splat, y_and_pairs
 from pfnl_tpu_torch.ops.conv import conv_transpose_same2
 from pfnl_tpu_torch.ops.convlstm import ConvLSTMCell
 from pfnl_tpu_torch.ops.resize import resize_bicubic
-from pfnl_tpu_torch.ops.warp import forward_warp_local_spmc, forward_warp_spmc
+from pfnl_tpu_torch.ops.warp import band_flow, forward_warp_local_spmc, forward_warp_spmc
 
 LSTM_FEATURES = 128
 
@@ -81,18 +81,22 @@ class DRVSR(YFamily):
         self.srmodel = SRStep(dtype, generator)
 
     def forward(self, frames_lr: torch.Tensor, last_only: bool = False,
-                plain: bool = False) -> dict:
+                plain: bool = False, warped_lr: bool = True, row0: int = 0) -> dict:
         """On a CUDA tensor the SPMC splat is kernel 8 (and the full form's
         `warped_lr` kernel 7) unless plain=True asks for their plain
-        versions."""
+        versions.  A band of parallel/spmd.sharded_forward passes
+        warped_lr=False, which leaves the full form's `warped_lr` out (the
+        band reads only sr), and row0, the row of the whole image that is
+        its first (the warps round their coordinates as the whole image's,
+        `ops.warp.band_flow`)."""
         n, t, h, w, _ = frames_lr.shape
         s = self.scale
         out_h, out_w = h * s, w * s
         frames_y, ref_y, flat, ref_rep = y_and_pairs(frames_lr, self.dtype)
         bic_ref = resize_bicubic(ref_y, (out_h, out_w))
-        uv = self.easyflow(flat, ref_rep)
+        uv = self.easyflow(flat, ref_rep, row0)
         spmc = forward_warp_local_spmc if plain else forward_warp_spmc
-        warped_hr = spmc(flat.contiguous(), uv.contiguous(), s, 2).reshape(n, t, out_h, out_w, 1)
+        warped_hr = spmc(flat.contiguous(), band_flow(uv, row0).contiguous(), s, 2).reshape(n, t, out_h, out_w, 1)
 
         state = self.srmodel.lstm.zero_state(n, out_h // 4, out_w // 4, self.dtype,
                                              frames_lr.device)
@@ -104,7 +108,8 @@ class DRVSR(YFamily):
             _, last = self.srmodel(state, warped_hr[:, t - 1])
             outs = last[:, None]
         else:
-            out["warped_lr"] = splat(flat, uv, 2, plain).reshape(n, t, h, w, 1).float()
+            if warped_lr:
+                out["warped_lr"] = splat(flat, uv, 2, plain).reshape(n, t, h, w, 1).float()
             steps = []
             for i in range(t):
                 state, o = self.srmodel(state, warped_hr[:, i])

@@ -21,8 +21,8 @@ from torch import nn
 
 from pfnl_tpu_torch.models.blocks import Conv, leaky_relu
 from pfnl_tpu_torch.ops.color import rgb2y
-from pfnl_tpu_torch.ops.resize import resize_bilinear
-from pfnl_tpu_torch.ops.warp import (backward_warp_local, forward_warp_local,
+from pfnl_tpu_torch.ops.resize import resize_bilinear, resize_rows
+from pfnl_tpu_torch.ops.warp import (backward_warp_local, band_flow, forward_warp_local,
                                      forward_warp_local_ref)
 
 
@@ -51,8 +51,10 @@ class EasyFlow(nn.Module):
                                 ("s5", 3, 24, 8)):
             setattr(self, name, Conv((k, k, ci, co), generator))
 
-    def forward(self, imga, imgb):
-        """imga, imgb [N,h,w,C] (h, w multiples of 4) -> flow [N,h,w,2]."""
+    def forward(self, imga, imgb, row0: int = 0):
+        """imga, imgb [N,h,w,C] (h, w multiples of 4) -> flow [N,h,w,2].
+        row0: the row of the whole image that is their first (a band,
+        `band_flow`)."""
         inputs = torch.cat([imga, imgb], -1).to(self.dtype)
         c1 = torch.relu(self.c1(inputs, stride=2))
         c2 = torch.relu(self.c2(c1))
@@ -60,7 +62,7 @@ class EasyFlow(nn.Module):
         c4 = torch.relu(self.c4(c3))
         c5_hr = _subpixel_flow(torch.tanh(self.c5(c4)), 4)
         # the coarse flow is tanh-bounded (|uv| < 1): the local gather warp
-        img_warp = backward_warp_local(imgb, c5_hr, max_disp=1)
+        img_warp = backward_warp_local(imgb, band_flow(c5_hr, row0), max_disp=1)
         pack = torch.cat([inputs, c5_hr, img_warp.to(self.dtype)], -1)
         s1 = torch.relu(self.s1(pack, stride=2))
         s2 = torch.relu(self.s2(s1))
@@ -109,12 +111,17 @@ class FRVSRFlow(nn.Module):
         self.conv2 = Conv((3, 3, cin, 32), generator)
         self.conv3 = Conv((3, 3, 32, 2), generator)
 
-    def forward(self, i_t, i_pt):
+    def forward(self, i_t, i_pt, rows=None):
         """i_t, i_pt [N,h,w,C] -> flow [N,h,w,2] in [-1, 1]: three levels of
         two 3x3 convs (leaky ReLU 0.2) and a 2x2 max-pool, three decoder
         levels each ending in a bilinear resize to twice the pooled size,
         then a resize to (h, w) where the pools floored (180 -> 22 -> 176),
-        a conv and tanh(conv)."""
+        a conv and tanh(conv).  rows=(full_h, row0): i_t and i_pt are rows
+        row0.. of an image of full_h rows (a band of
+        parallel/spmd.sharded_forward, row0 a multiple of 8), and the band
+        takes its rows of the whole image's resize (176 -> 180 is not
+        translation-equivariant); the rows that would read decoded rows the
+        band does not hold lie in its halo."""
         _, h, w, _ = i_t.shape
         x = torch.cat([i_t, i_pt], -1).to(self.dtype)
         for p in range(3):
@@ -126,8 +133,10 @@ class FRVSRFlow(nn.Module):
             for q in range(2):
                 x = leaky_relu(getattr(self, f"conv1_{p}_{q}")(x))
             x = resize_bilinear(x, (h1 * 2 ** (p + 1), w1 * 2 ** (p + 1)))
-        if x.shape[1] != h or x.shape[2] != w:
-            x = resize_bilinear(x, (h, w))
+        full_h, row0 = (h, 0) if rows is None else rows
+        if full_h % 8 or x.shape[2] != w:
+            x = resize_rows(x, full_h // 8 * 8, row0, (full_h, w), (row0, row0 + h), "bilinear",
+                            strict=False)
         x = leaky_relu(self.conv2(x))
         return torch.tanh(self.conv3(x))
 
@@ -158,8 +167,11 @@ def y_and_pairs(frames_lr: torch.Tensor, dtype):
     return frames_y, ref_y, flat, ref_rep
 
 
-def splat(flat: torch.Tensor, uv: torch.Tensor, max_disp: int, plain: bool) -> torch.Tensor:
+def splat(flat: torch.Tensor, uv: torch.Tensor, max_disp: int, plain: bool,
+          row0: int = 0) -> torch.Tensor:
     """The bounded splat: kernel 7 on a CUDA tensor unless plain=True asks
-    for its plain version (the reference the kernel path is held to)."""
+    for its plain version (the reference the kernel path is held to).
+    row0: the row of the whole image that is the first of flat (a band,
+    `band_flow`)."""
     fn = forward_warp_local_ref if plain else forward_warp_local
-    return fn(flat.contiguous(), uv.contiguous(), max_disp)
+    return fn(flat.contiguous(), band_flow(uv, row0).contiguous(), max_disp)

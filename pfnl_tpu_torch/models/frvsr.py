@@ -76,23 +76,29 @@ class FRVSR(nn.Module):
             x = torch.relu(conv_transpose_same2(x, up.kernel) + up.bias.to(x.dtype))
         return conv2d_same(x, self.out.kernel) + self.out.bias.to(x.dtype)
 
-    def _upscale_warp(self, uv, est, plain: bool = False):
+    def _upscale_warp(self, uv, est, plain: bool = False, row0: int = 0):
         """Splat the previous SR est [N,H,W,3] by the flow resized to the HR
         grid, its values unscaled (so |flow| < 1 and R=1 holds), and fold it
-        back onto the LR grid [N,h,w,48]."""
+        back onto the LR grid [N,h,w,48].  row0: the HR row of the whole
+        image that is est's first (a band)."""
         upuv = resize_bilinear(uv, (est.shape[1], est.shape[2]))
-        return space_to_depth(splat(est, upuv, 1, plain), self.scale)
+        return space_to_depth(splat(est, upuv, 1, plain, row0), self.scale)
 
-    def step(self, x, xp=None, est=None, plain: bool = False):
+    def step(self, x, xp=None, est=None, plain: bool = False, rows=None):
         """One recurrent step.  x: current LR [N,h,w,3]; xp: previous LR;
         est: previous SR [N,H,W,3], as the previous step returned it.
         Returns SR [N,H,W,3] in the compute dtype.  plain: the splat's plain
-        version on a CUDA tensor (the reference the kernel path is held to)."""
+        version on a CUDA tensor (the reference the kernel path is held to).
+        rows=(full_h, row0): x is rows row0.. of an image of full_h rows (a
+        band of parallel/spmd.sharded_forward): the flow net takes its rows
+        of the whole image's resize, and the splat rounds its coordinates as
+        the whole image's (`ops.warp.band_flow`)."""
         x = x.to(self.dtype)
         if xp is None:
             return self._trunk(x, first=True)
-        uv = self.flow(x, xp.to(self.dtype))
-        est_lr = self._upscale_warp(uv, est.to(self.dtype), plain)
+        uv = self.flow(x, xp.to(self.dtype), rows)
+        row0 = 0 if rows is None else self.scale * rows[1]
+        est_lr = self._upscale_warp(uv, est.to(self.dtype), plain, row0)
         return self._trunk(torch.cat([x, est_lr], -1), first=False)
 
     def forward(self, frames_lr: torch.Tensor, plain: bool = False) -> dict:

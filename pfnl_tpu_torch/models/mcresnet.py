@@ -38,13 +38,16 @@ class MCResNet(YFamily):
         self.conv6_prelu = PReLU(16)
         self.rnn_out = Conv((3, 3, 4, 4), generator)
 
-    def forward(self, frames_lr: torch.Tensor, plain: bool = False) -> dict:
+    def forward(self, frames_lr: torch.Tensor, plain: bool = False, row0: int = 0) -> dict:
+        """row0: the row of the whole image that is the first of frames_lr (a
+        band of parallel/spmd.sharded_forward: the warps round their
+        coordinates as the whole image's, `ops.warp.band_flow`)."""
         n, t, h, w, _ = frames_lr.shape
         idx0 = t // 2
         frames_y, ref_y, flat, ref_rep = y_and_pairs(frames_lr, self.dtype)
         bic_ref = resize_bicubic(ref_y, (h * self.scale, w * self.scale))
-        uv = self.easyflow(flat, ref_rep)
-        warped = splat(flat, uv, 2, plain).reshape(n, t, h, w, 1)
+        uv = self.easyflow(flat, ref_rep, row0)
+        warped = splat(flat, uv, 2, plain, row0).reshape(n, t, h, w, 1)
         enc = [getattr(self, f"enc1_prelu_{i}")(
                    getattr(self, f"enc1_{abs(i - idx0)}")(warped[:, i])) for i in range(t)]
         merge = torch.cat(enc, -1)

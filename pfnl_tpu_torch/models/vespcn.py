@@ -37,13 +37,16 @@ class VESPCN(YFamily):
         for i, c in enumerate([24] * 10 + [16]):
             setattr(self, f"prelu_{i}", PReLU(c))
 
-    def forward(self, frames_lr: torch.Tensor, plain: bool = False) -> dict:
+    def forward(self, frames_lr: torch.Tensor, plain: bool = False, row0: int = 0) -> dict:
+        """row0: the row of the whole image that is the first of frames_lr (a
+        band of parallel/spmd.sharded_forward: the warps round their
+        coordinates as the whole image's, `ops.warp.band_flow`)."""
         n, t, h, w, _ = frames_lr.shape
         frames_y, ref_y, flat, ref_rep = y_and_pairs(frames_lr, self.dtype)
         bic_ref = resize_bicubic(ref_y, (h * self.scale, w * self.scale))
-        uv = self.easyflow(flat, ref_rep)
+        uv = self.easyflow(flat, ref_rep, row0)
         # EasyFlow is two tanh stages, so |uv| < 2
-        warped = splat(flat, uv, 2, plain)
+        warped = splat(flat, uv, 2, plain, row0)
         x = warped.reshape(n, t, h, w, 1).permute(0, 2, 3, 1, 4).reshape(n, h, w, t)
         x = self.prelu_0(self.enc1(x))
         for i in range(9):

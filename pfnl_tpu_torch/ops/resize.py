@@ -91,16 +91,19 @@ def resize_images(x: torch.Tensor, size, method: str = "bilinear",
 
 
 def resize_rows(x: torch.Tensor, full_h: int, row0: int, size, out_rows,
-                method: str = "bicubic", mapping: str = "tf1") -> torch.Tensor:
+                method: str = "bicubic", mapping: str = "tf1",
+                strict: bool = True) -> torch.Tensor:
     """Output rows out_rows = (lo, hi) of `resize_images(image, size)` for an
     image of full_h rows of which x [N,h,W,C] holds rows row0..row0+h (a
     band of rows and its halo, parallel/spmd.py); raises where those output
-    rows read a row x does not hold.  The products are resize_images'
-    with the rows of its height matrix cut to the band."""
+    rows read a row x does not hold, unless strict=False, which drops those
+    reads (the output rows that make them are wrong, and a band's halo must
+    cover them).  The products are resize_images' with the rows of its
+    height matrix cut to the band."""
     lo, hi = out_rows
     h = x.shape[1]
     full = _resize_matrix(full_h, int(size[0]), method, mapping)
-    if full[lo:hi, :row0].any() or full[lo:hi, row0 + h:].any():
+    if strict and (full[lo:hi, :row0].any() or full[lo:hi, row0 + h:].any()):
         raise ValueError(f"output rows {lo}..{hi} read input rows outside {row0}..{row0 + h}")
     compute = _compute_dtype(x)
     wh = _matrix(full_h, int(size[0]), method, mapping, x.device, compute)[lo:hi, row0:row0 + h]

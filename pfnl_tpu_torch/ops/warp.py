@@ -85,6 +85,21 @@ def fold_border(canvas: torch.Tensor, m: int) -> torch.Tensor:
     return out
 
 
+def band_flow(uv: torch.Tensor, row0: int) -> torch.Tensor:
+    """uv [...,h,W,2] of rows row0..row0+h of an image (a band of
+    parallel/spmd.sharded_forward) -> uv with its row component v replaced
+    by (gy + v) - gy in float32, gy the row in the whole image: v rounded
+    as the whole image's coordinate gy + v rounds.  A warp of the band, whose
+    coordinates count from the band's first row, then computes the whole
+    image's taps bitwise (both differences are exact in float32, and the
+    rounded v has no more significant bits than v, so it keeps uv's dtype)."""
+    if row0 == 0:
+        return uv
+    gy = torch.arange(row0, row0 + uv.shape[-3], dtype=torch.float32, device=uv.device)[:, None]
+    v = uv[..., 1].float()
+    return torch.stack([uv[..., 0], ((gy + v) - gy).to(uv.dtype)], -1)
+
+
 def backward_warp_local(im: torch.Tensor, uv: torch.Tensor, max_disp: int = 1) -> torch.Tensor:
     """Bilinear gather warp for |uv| <= max_disp: each output pixel reads
     its (2R+2)^2 statically shifted neighbours of the edge-replicated

@@ -13,19 +13,34 @@ order onto the first device.
 The JAX package's other path, `sharded_forward`, shards the batch over
 `data` and the image rows over `space`, and GSPMD inserts the convs' halo
 exchanges and the attention's collectives.  PyTorch has no GSPMD, so
-`sharded_forward` here runs PFNL's stages band by band and exchanges the
-halos by hand (plain tensor copies between devices): each band of rows
-runs the model's own kernels, K1-K4 on the card, on its rows and the halo
-rows its layer reads across the band's edges.  It is the path for an image
-too large for one device.  PFNL only: the other families' row-sharded
-forwards are still to port (ROADMAP.md, Queue 1).
+`sharded_forward` here splits the rows into bands by hand, one program a
+band, each launching its family's kernels on its rows.  It is the path for
+an image too large for one device.  Three designs:
+
+  PFNL      its stages band by band, HALO ghost rows a side refreshed from
+            the neighbours after every layer (plain tensor copies between
+            devices); each band's attention against every band's keys
+  VESPCN, MCResNet, LTDVSR, DRVSR, DUF
+            overlapped bands: a band runs the family's own forward on its
+            rows and `halo` input rows a side, sliced from the caller's
+            input, and keeps its own output rows; `row_geometry` gives the
+            halo (the forward's receptive reach) and the alignment that
+            keeps strided convs, pools and sub-pixel shuffles in phase
+  FRVSR     each step of the recurrence on overlapped bands of one step's
+            reach, the previous estimate's rows gathered from the bands
+            that own them (`gather_rows`) before each step
+
+JAX's GSPMD `sharded_forward` does not compute the unsharded forward of
+the families that splat (its Pallas splat is a per-chip program that
+GSPMD cannot partition), so these are held to the unsharded forward.
 """
 
 import copy
+from typing import NamedTuple
 
 import torch
 
-from pfnl_tpu_torch.models.pfnl import PFNL
+from pfnl_tpu_torch.models import DRVSR, DUF, FRVSR, LTDVSR, PFNL, MCResNet, VESPCN
 from pfnl_tpu_torch.ops.cuda.pfnl_tail import merge_tail
 from pfnl_tpu_torch.ops.cuda.pfrb import pfrb_block
 from pfnl_tpu_torch.ops.pfrb_ref import compose_d2s4
@@ -90,21 +105,24 @@ def sharded_forward_dp(model, devices):
 HALO = 2
 
 
-def row_bands(h: int, space: int):
-    """[(r0, r1)] of `space` bands of even row counts, in order, covering h
-    rows and differing by at most one row pair (space_to_depth(2) needs
-    even bands); raises where h is odd or h/2 < space."""
-    if h % 2:
-        raise ValueError(f"sharded_forward needs an even row count, got {h}")
-    pairs = h // 2
-    if pairs < space:
-        raise ValueError(f"{h} rows make {pairs} row pairs, fewer than {space} bands")
-    q, extra = divmod(pairs, space)
+def row_bands(h: int, space: int, align: int = 2, ragged: bool = False):
+    """[(r0, r1)] of `space` bands in order covering h rows, each a multiple
+    of `align` rows, differing by at most `align` rows (PFNL's
+    space_to_depth(2) needs even bands); raises where h is not a multiple
+    of align or h // align < space.  ragged=True takes any h: the bottom
+    band takes the h % align rows past the last multiple."""
+    units, rest = divmod(h, align)
+    if rest and not ragged:
+        raise ValueError(f"{h} rows do not split evenly into bands of multiples of {align} rows")
+    if units < space:
+        raise ValueError(f"{h} rows make {units} row groups of {align}, fewer than {space} bands")
+    q, extra = divmod(units, space)
     bands, r0 = [], 0
     for i in range(space):
-        r1 = r0 + 2 * (q + (i < extra))
+        r1 = r0 + align * (q + (i < extra))
         bands.append((r0, r1))
         r0 = r1
+    bands[-1] = (bands[-1][0], h)
     return bands
 
 
@@ -180,33 +198,185 @@ def _pfnl_bands(models, xs, rows, h, impl):
     return out
 
 
-def sharded_forward(model, devices, space: int = 1, impl: str = "auto"):
-    """fn(x) -> PFNL's SR [N,1,4h,4w,3] float32 with x [N,T,h,w,3] sharded
-    over `devices` (len data x space, data-major: devices[d * space + s]
-    holds band s of batch shard d): the batch split evenly over `data`,
-    the rows over `space` bands of even rows that differ by at most one
-    row pair (`row_bands`).  A device may appear more than once ([cuda:0]
-    * 4 is four bands on one GPU).  The result is gathered in order on
-    devices[0].  Forward only, under no_grad.
+# The overlapped bands' geometry.  A reach is the most LR rows an output row
+# reads past its own on either side, composed layer by layer (each conv's
+# window, stride and TF-SAME pad, each pool, resize and sub-pixel shuffle) as
+# intervals of rows; the flow nets':
+EASYFLOW_REACH = 30    # the coarse x4 branch (two stride-2 convs) 19, the x2 refinement 11 more
+LTDFLOW_REACH = 20     # a 9x9 conv before each of two pools, the x4 bilinear back, a 3x3 conv
+FRVSRFLOW_REACH = 65   # three levels of two 3x3 convs and a pool, three of two 3x3 convs and a
+                       # x2 bilinear, two 3x3 convs (58 rows up, with the 7 rows that the
+                       # resize back from where the pools floored can move a tap)
 
-    Each band runs the model's stages (`PFNL.frame_concat`, `embed`,
-    `block_params`, `tail_params`) on its rows: its attention queries
-    against the keys and values of every band, gathered in band order
-    (kernel 1 on the card), then conv0, each PFRB (kernels 2 and 3) and the
-    tail (kernel 4) on its rows and HALO ghost rows a side, refreshed from
-    its neighbours after each layer, and the bicubic of the centre frame on
-    its rows.  The result is the unsharded forward's: bitwise on the CPU,
-    and on the card where conv0 runs PyTorch's own convolution (cuDNN may
-    pick another conv0 algorithm for a band than for the whole image, a
-    bf16 rounding here and there that the blocks spread).  impl
-    (the CPU only): the attention, "auto" (the JAX package's rule: chunked
-    above 4096 keys), "dense" or "chunked"."""
-    if not isinstance(model, PFNL):
-        raise NotImplementedError(
-            f"sharded_forward row-shards PFNL only, not {type(model).__name__}")
+
+class RowGeometry(NamedTuple):
+    """align: band offsets, and a band's rows and halo away from the image's
+    bottom, are multiples of align (the strided convs' and pools' phase);
+    halo: the input rows a band reads past each edge, its forward's reach
+    rounded up to align (FRVSR: one step's); ragged: the image's height
+    need not be a multiple of align (the bottom band takes the rest)."""
+    align: int
+    halo: int
+    ragged: bool = False
+
+
+def _round_up(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def row_geometry(model) -> RowGeometry:
+    """The bands' RowGeometry of a family, from its configuration (DRVSR's
+    frames, DUF's blocks, FRVSR's blocks)."""
+    if isinstance(model, PFNL):
+        # even bands (space_to_depth(2)); HALO ghost rows refreshed after every
+        # layer, not an overlap
+        return RowGeometry(2, HALO)
+    if isinstance(model, (VESPCN, MCResNet)):
+        # EasyFlow; the R=2 splat (a target row reads sources up to 2 rows
+        # below); 11 trunk convs (5x5, 9 of 3x3, conv6) and rnn_out on the x2
+        # grid (1 LR row): 45 -> 48 (the bicubic of the centre frame reads 2)
+        return RowGeometry(4, _round_up(EASYFLOW_REACH + 2 + 13, 4))
+    if isinstance(model, LTDVSR):
+        # LTDFlow; the R=1 splat; a branch's 5x5 and three 3x3 convs (the
+        # temporal weights' 5x5 convs on the HR grid read 3 LR rows): 26 -> 28
+        return RowGeometry(4, _round_up(LTDFLOW_REACH + 1 + 5, 4))
+    if isinstance(model, DRVSR):
+        # EasyFlow; SPMC's x4 splat (2 rows) and SRStep on the HR grid up to
+        # the last frame's decode: the encoder to the LR grid, one ConvLSTM conv
+        # a frame, the decoder (T + 5 rows): 3 frames, 40
+        return RowGeometry(4, _round_up(EASYFLOW_REACH + 2 + model.num_frames + 5, 4))
+    if isinstance(model, DUF):
+        # conv1 1x3x3, one 3x3x3 a dense block, conv2 1x3x3 (the 1x5x5 dynamic
+        # filter reads the centre frame within 2 rows beside them): 52L, 26
+        return RowGeometry(1, len(model.G.modes) + 2)
+    if isinstance(model, FRVSR):
+        # one step: FRVSRFlow; its x4 bilinear to the HR grid, the R=1 splat
+        # and space_to_depth(4) (2 rows); conv0_1 with the two transposed convs
+        # and `out` (2 rows), two 3x3 convs a block: 10 blocks, 89 -> 96
+        return RowGeometry(8, _round_up(FRVSRFLOW_REACH + 2 + 2 + 2 * model.num_blocks, 8),
+                           ragged=True)
+    raise NotImplementedError(
+        f"sharded_forward row-shards the seven families (PFNL, VESPCN, MCResNet, LTDVSR, "
+        f"DRVSR, DUF, FRVSR), not {type(model).__name__}")
+
+
+def extents(rows, h: int, halo: int):
+    """[(e0, e1)]: each band's rows and `halo` rows a side, clipped to the
+    image's h rows."""
+    return [(max(0, r0 - halo), min(h, r1 + halo)) for r0, r1 in rows]
+
+
+def gather_rows(bands, lo: int, hi: int, device):
+    """Rows lo..hi (along dim 1) of an image held in pieces, bands [(r0, t)]
+    with t holding rows r0..r0 + t.shape[1], in order -> one tensor on
+    `device`, each row from whichever band holds it (a halo wider than a
+    band spans several); raises where the bands do not cover lo..hi."""
+    parts = []
+    for r0, t in bands:
+        a, b = max(lo, r0), min(hi, r0 + t.shape[1])
+        if a < b:
+            parts.append(t.narrow(1, a - r0, b - a).to(device, non_blocking=True))
+    if sum(p.shape[1] for p in parts) != hi - lo:
+        raise ValueError(f"rows {lo}..{hi} are not all held by the bands")
+    return torch.cat(parts, 1) if len(parts) > 1 else parts[0].contiguous()
+
+
+def _window_sr(model, x, row0: int = 0):
+    """A window family's SR of x [N,T,h,w,3] float32, [N,T',4h,4w,C] (the
+    dict's "sr" but for DUF, which returns it; DRVSR's full form without
+    its `warped_lr`, which nothing here reads).  row0: the row of the whole
+    image that is x's first, so that the warps round their coordinates as
+    the whole image's (`ops.warp.band_flow`; DUF has no warp)."""
+    if isinstance(model, DUF):
+        return model(x)
+    if isinstance(model, DRVSR):
+        return model(x, warped_lr=False, row0=row0)["sr"]
+    return model(x, row0=row0)["sr"]
+
+
+def _window_bands(models, xd, devs, rows, h, halo):
+    """The window family's forward on each band's rows and `halo` rows a side
+    of xd [n,T,h,W,3] -> the bands of SR [n,T',4(r1-r0),4W,C] float32."""
+    out = []
+    for m, dev, (r0, r1), (e0, e1) in zip(models, devs, rows, extents(rows, h, halo)):
+        sr = _window_sr(m, xd[:, :, e0:e1].to(dev, non_blocking=True).contiguous(), e0)
+        s = m.scale
+        out.append(sr[:, :, s * (r0 - e0):s * (r1 - e0)])
+    return out
+
+
+def _frvsr_bands(models, xd, devs, rows, h, halo):
+    """FRVSR.forward's SR of xd [n,T,h,W,3] in bands: each step on each
+    band's rows and `halo` rows a side, the previous estimate's rows there
+    gathered from the bands that own them -> the bands of SR
+    [n,T,4(r1-r0),4W,3] float32."""
+    ext = extents(rows, h, halo)
+    s = models[0].scale
+    frames = [xd[:, :, e0:e1].to(dev, non_blocking=True).contiguous()
+              for dev, (e0, e1) in zip(devs, ext)]
+    own, srs = None, [[] for _ in rows]
+    for t in range(xd.shape[1]):
+        new = []
+        for m, dev, x, (r0, r1), (e0, e1) in zip(models, devs, frames, rows, ext):
+            if t == 0:
+                sr = m.step(x[:, 0])
+            else:
+                est = gather_rows(own, s * e0, s * e1, dev)
+                sr = m.step(x[:, t], x[:, t - 1], est, rows=(h, e0))
+            new.append((s * r0, sr[:, s * (r0 - e0):s * (r1 - e0)]))
+        own = new
+        for band, (_, sr) in zip(srs, own):
+            band.append(sr.float())
+    return [torch.stack(band, 1) for band in srs]
+
+
+def sharded_forward(model, devices, space: int = 1, impl: str = "auto"):
+    """fn(x) -> the model's SR float32 with x [N,T,h,w,3] sharded over
+    `devices` (len data x space, data-major: devices[d * space + s] holds
+    band s of batch shard d): the batch split evenly over `data`, the rows
+    over `space` bands (`row_bands`).  A device may appear more than once
+    ([cuda:0] * 4 is four bands on one GPU).  The result is gathered in
+    order on devices[0].  Forward only, under no_grad.  It is what JAX's
+    `sharded_forward` is meant to compute, `model.apply(...)["sr"]`: PFNL,
+    VESPCN, MCResNet, LTDVSR [N,1,4h,4w,1] (PFNL 3 channels), DRVSR's full
+    form [N,T,4h,4w,1], DUF [N,1,4h,4w,3], FRVSR's unrolled recurrence
+    [N,T,4h,4w,3].
+
+    PFNL: bands of even rows (`row_bands(h, space)`).  Each band runs the
+    model's stages (`PFNL.frame_concat`, `embed`, `block_params`,
+    `tail_params`) on its rows: its attention queries against the keys and
+    values of every band, gathered in band order (kernel 1 on the card),
+    then conv0, each PFRB (kernels 2 and 3) and the tail (kernel 4) on its
+    rows and HALO ghost rows a side, refreshed from its neighbours after
+    each layer, and the bicubic of the centre frame on its rows.  The
+    result is the unsharded forward's: bitwise on the CPU, and on the card
+    where conv0 runs PyTorch's own convolution (cuDNN may pick another conv0
+    algorithm for a band than for the whole image, a bf16 rounding here and
+    there that the blocks spread).  impl (the CPU only): the attention,
+    "auto" (the JAX package's rule: chunked above 4096 keys), "dense" or
+    "chunked".
+
+    The window families (VESPCN, MCResNet, LTDVSR, DRVSR, DUF): bands of
+    multiples of `row_geometry(model).align` rows; each band runs the
+    family's own forward (`_window_sr`: kernel 7, 8 or 9, and 10 under
+    conv3d_impl="pallas", once a band) on its rows and row_geometry's halo
+    rows a side, clipped to the image, and keeps its own output rows.  FRVSR: each step
+    of the recurrence so on every band (kernel 7 once a band a step after
+    the first), with the previous estimate's rows gathered from the bands
+    that own them before each step; its flow net takes its rows of the
+    whole image's resize.  A band's warps round their coordinates as the
+    whole image's (`ops.warp.band_flow`).  The halo covers the forward's
+    reach, so the result is the unsharded forward's: bitwise on the CPU,
+    but where `data` splits the batch and a conv sums a smaller batch in
+    another order, and on the card where cuDNN keeps the whole image's
+    algorithm for a band."""
     devices = device_list(devices)
     if space < 1 or len(devices) % space:
         raise ValueError(f"{len(devices)} devices do not split into bands of space={space}")
+    geo = row_geometry(model)
+    if isinstance(model, DUF) and model.training:
+        raise ValueError("sharded_forward runs DUF in eval mode: a training-mode BatchNorm "
+                         "would normalise each band by its own statistics")
     data = len(devices) // space
     replicas = replicate(model, devices)
 
@@ -215,13 +385,20 @@ def sharded_forward(model, devices, space: int = 1, impl: str = "auto"):
         n, _, h, _, _ = x.shape
         if n % data:
             raise ValueError(f"a batch of {n} does not split over data={data}")
-        rows = row_bands(h, space)
+        rows = row_bands(h, space, geo.align, geo.ragged)
         out = []
         for d, xd in enumerate(x.split(n // data)):
             devs = devices[d * space:(d + 1) * space]
-            xs = [xd[:, :, r0:r1].to(dev, non_blocking=True) for dev, (r0, r1) in zip(devs, rows)]
-            bands = _pfnl_bands([replicas[dev] for dev in devs], xs, rows, h, impl)
-            out.append(torch.cat([b.to(devices[0]) for b in bands], 1))
-        return torch.cat(out)[:, None]
+            models = [replicas[dev] for dev in devs]
+            if isinstance(model, PFNL):
+                xs = [xd[:, :, r0:r1].to(dev, non_blocking=True)
+                      for dev, (r0, r1) in zip(devs, rows)]
+                bands = [b[:, None] for b in _pfnl_bands(models, xs, rows, h, impl)]
+            elif isinstance(model, FRVSR):
+                bands = _frvsr_bands(models, xd, devs, rows, h, geo.halo)
+            else:
+                bands = _window_bands(models, xd, devs, rows, h, geo.halo)
+            out.append(torch.cat([b.to(devices[0]) for b in bands], 2))
+        return torch.cat(out)
 
     return fn

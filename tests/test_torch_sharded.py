@@ -1,14 +1,18 @@
-"""`parallel/spmd.sharded_forward` (PFNL's image rows over devices, the
-halos exchanged by hand) against the port's unsharded forward and against
-the JAX package's GSPMD `sharded_forward` on the same weights, on the CPU
-(a device may appear more than once, so ["cpu"] * 8 is a data 2 x space 4
-mesh): even bands, uneven bands, the chunked attention, and the raises."""
+"""`parallel/spmd.sharded_forward` on PFNL (its image rows over devices,
+the halos exchanged by hand after every layer) against the port's
+unsharded forward and against the JAX package's GSPMD `sharded_forward`
+on the same weights, on the CPU (a device may appear more than once, so
+["cpu"] * 8 is a data 2 x space 4 mesh): even bands, uneven bands, the
+chunked attention, and the raises, among them a module that is none of
+the seven families.  The other six families' overlapped bands are in
+test_torch_sharded_families.py and test_torch_sharded_drvsr_duf.py."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch import nn
 
 torch.set_num_threads(2)
 
@@ -16,7 +20,6 @@ from pfnl_tpu.models.pfnl import PFNL as JPFNL
 from pfnl_tpu.parallel.mesh import make_mesh as j_make_mesh
 from pfnl_tpu.parallel.spmd import sharded_forward as j_sharded_forward
 
-from pfnl_tpu_torch.models import VESPCN
 from pfnl_tpu_torch.models.pfnl import PFNL
 from pfnl_tpu_torch.parallel.spmd import exchange_halos, row_bands, sharded_forward, with_halo
 from pfnl_tpu_torch.utils.weights import from_flax
@@ -124,5 +127,5 @@ def test_sharded_forward_raises_where_it_cannot_shard(pfnl_pair):
         sharded_forward(model, ["cpu"] * 8, space=2)(x)       # a batch of 2 over 4
     with pytest.raises(ValueError, match="bands of space=3"):
         sharded_forward(model, ["cpu"] * 4, space=3)
-    with pytest.raises(NotImplementedError, match="PFNL only"):
-        sharded_forward(VESPCN(), ["cpu"] * 2, space=2)
+    with pytest.raises(NotImplementedError, match="the seven families"):
+        sharded_forward(nn.Conv2d(1, 1, 1), ["cpu"] * 2, space=2)
