@@ -216,14 +216,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      band, the whole image) printed: relative L2, maximum, bitwise;
      forward ms (CUDA events) and peak memory beside the unsharded
      forward's; then one DUF-52L window at conv3d_impl="pallas", K10 24
-     times a band at (1, 2).
+     times a band at (1, 2), and LTDVSR at 178 LR rows (not a multiple of
+     4: the bottom band takes the rest, each band its rows of the flow net's
+     whole-image resize) at (1, 2).
+ 18. the port's bench (pfnl_tpu_torch/bench.py): bench_all at its defaults
+     (each family's serving forward at full width, LR 180x320, bf16, 10
+     steps, bench.py's batches: PFNL 16 windows, DRVSR and FRVSR 8, DUF 1),
+     its launches and peak memory read around each family's `main`: every
+     record finite and positive, no error record, exactly the family's
+     kernels (PFNL K1-K4, VESPCN, MCResNet, LTDVSR and FRVSR K7, DRVSR K8,
+     DUF K9) a forward; train_bench of PFNL in float32 and bf16 (finite
+     losses printed side by side) and fit_bench of 50 steps, kernels 2-6
+     launched in each; then `python -m pfnl_tpu_torch bench --steps 5` as a
+     subprocess, its last line bench.py's record; the phase's seconds.
 
 The second-to-last line is a JSON summary of the kernels: launches from
 the path that runs each (phase 4 plus 5c for kernels 1-6, 6 and 8 for
 7, 6 for 8, 7b for 9, 7c for 10; and phase 9b's kernel path for 7 and 8,
 phase 10 for 1-4 and 7-9, 11b's kernel-10 path for 10, 11c for 9, 12b
 for 7, 13 for 1-4, 7 and 9, 14a-c for 1-6, 15d for 1-6, 16 for 1-4, 17
-for 7-10; each
+for 7-10, 18 for 1-9; each
 counted where the custom op's CUDA kernel launches); errors and times at the shape named in
 TIMED (bf16 but for kernels 5 and 6, float32 at the training shape);
 `bound_ms`, the least time the card could take for the same work (the larger of the
@@ -242,6 +254,7 @@ device the script fails before printing any result.
 import collections
 import contextlib
 import glob
+import io
 import json
 import math
 import os
@@ -364,6 +377,18 @@ SHARDED_FAMILIES = {"vespcn": {"bounded_splat": 1}, "mcresnet": {"bounded_splat"
                     "duf": {"duf_block": 24}, "frvsr": {"bounded_splat": 9}}
 FRVSR_SHARDED_FRAMES = 10
 SHARDED_4K = (1, 4, 540, 960)           # data, space, LR rows and columns: a 2160x3840 output
+LTDVSR_RAGGED_ROWS = 178                # phase 17: LTDVSR at a height not a multiple of 4, (1, 2)
+# phase 18: pfnl_tpu_torch/bench.py.  bench_all's launches a serving forward of each family
+# (bench.main: DRVSR `last_only`, FRVSR's 10 streamed frames, DUF in eval mode); main runs
+# BENCH_STEPS forwards four times (a warm-up call and three timed)
+BENCH_LAUNCHES = {"pfnl": {"nonlocal_flash": 1, "pfrb_a": 20, "pfrb_b": 20, "pfnl_tail": 1},
+                  "vespcn": {"bounded_splat": 1}, "ltdvsr": {"bounded_splat": 1},
+                  "mcresnet": {"bounded_splat": 1}, "drvsr": {"spmc_splat": 1},
+                  "frvsr": {"bounded_splat": 9}, "duf": {"duf_block": 24}}
+BENCH_STEPS, BENCH_CALLS = 10, 4
+BENCH_TRAIN_KERNELS = ("pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a")
+BENCH_FIT_STEPS = 50                    # the bench CLI's --train-fit minimum
+BENCH_CLI_STEPS = 5
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
@@ -2846,6 +2871,10 @@ def phase_sharded_families(card, lrs):
         x4k = torch.from_numpy(synthetic_clip(frames, h4k, w4k, SEED + 1)[None]).cuda() / 255.0
         total.update(_sharded_case(fam, model, model32, x4k, [(data4k, space4k)], card,
                                    f"{fam} 4K"))
+        if fam == "ltdvsr":   # any height: the bottom band takes the rows past a multiple of 4
+            ragged = x[:, :, :LTDVSR_RAGGED_ROWS].contiguous()
+            total.update(_sharded_case(fam, model, model32, ragged, [(1, 2)], card,
+                                       f"{fam} {LTDVSR_RAGGED_ROWS} rows"))
         if fam == "duf":   # one window with kernel 10 for each growth conv, two bands
             pallas = DUF(dtype=torch.bfloat16, conv3d_impl="pallas").cuda().eval()
             pallas.load_state_dict(model.state_dict())
@@ -2868,6 +2897,118 @@ def phase_sharded_families(card, lrs):
             del pallas
         del model, model32, x, x4k
         torch.cuda.empty_cache()
+    return total
+
+
+def _bench_records(text):
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def _bench_value_ok(rec, metric_start):
+    return (set(rec) == {"metric", "value", "unit", "vs_baseline"}
+            and rec["metric"].startswith(metric_start) and isinstance(rec["value"], (int, float))
+            and math.isfinite(rec["value"]) and rec["value"] > 0)
+
+
+def phase_bench(card):
+    """18: pfnl_tpu_torch/bench.py (see the module docstring); returns the
+    launches of bench_all, train_bench and fit_bench."""
+    from pfnl_tpu_torch import bench
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    seen = {}
+    real_main = bench.main
+
+    def counted(model, *args, **kwargs):
+        """bench.main with its launches and peak memory read around it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            return real_main(model, *args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            seen[model] = ({k: launches[k] for k in KERNELS}, torch.cuda.max_memory_allocated())
+
+    out = io.StringIO()
+    bench.main = counted
+    try:
+        with contextlib.redirect_stdout(out):
+            bench.bench_all(steps=BENCH_STEPS)
+    finally:
+        bench.main = real_main
+    recs = _bench_records(out.getvalue())
+    if len(recs) != len(BENCH_LAUNCHES):
+        fail(f"18: bench_all printed {recs}, want one record a family of {list(BENCH_LAUNCHES)}")
+    forwards = BENCH_STEPS * BENCH_CALLS
+    for (fam, want_fwd), rec in zip(BENCH_LAUNCHES.items(), recs):
+        counts, peak = seen.get(fam, ({}, 0))
+        want = {k: want_fwd.get(k, 0) * forwards for k in KERNELS}
+        per_fwd = {k: v / forwards for k, v in counts.items() if v}
+        print(f"[18 bench] {json.dumps(rec)}; peak memory {peak / 2**30:.2f} GiB; launches a "
+              f"forward {per_fwd} ({forwards} forwards) on {card}", flush=True)
+        if "error" in rec or not _bench_value_ok(rec, f"HR frames/sec/chip ({fam} "):
+            fail(f"18 {fam}: bench_all's record {rec}")
+        if counts != want:
+            fail(f"18 {fam}: launches {counts}, want {want}")
+        total.update(counts)
+
+    losses = {}
+    for dtype in ("float32", "bfloat16"):
+        out = io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            _, losses[dtype] = bench.train_bench("pfnl", BENCH_STEPS, dtype=dtype)
+        torch.cuda.synchronize()
+        counts = {k: launches[k] for k in KERNELS}
+        (rec,) = _bench_records(out.getvalue())
+        print(f"[18 train_bench] {json.dumps(rec)}; loss {losses[dtype]:.6f}; launches a step "
+              f"{ {k: v / (1 + BENCH_STEPS) for k, v in counts.items() if v} } on {card}",
+              flush=True)
+        if not _bench_value_ok(rec, f"train steps/sec (pfnl b16 crop 32 {dtype})"):
+            fail(f"18: train_bench {dtype} printed {rec}")
+        if not all(counts[k] for k in BENCH_TRAIN_KERNELS):
+            fail(f"18: train_bench {dtype} launched {counts}; kernels 2-6 must run")
+        total.update(counts)
+    print(f"[18 train_bench] the last step's loss: bfloat16 {losses['bfloat16']:.6f} beside "
+          f"float32 {losses['float32']:.6f}", flush=True)
+
+    out = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        _, trainer = bench.fit_bench("pfnl", BENCH_FIT_STEPS)
+    counts = {k: launches[k] for k in KERNELS}
+    (rec,) = _bench_records(out.getvalue())
+    print(f"[18 fit_bench] {json.dumps(rec)}; global step {trainer.global_step}; launches a "
+          f"step { {k: v / (1 + BENCH_FIT_STEPS) for k, v in counts.items() if v} } on {card}",
+          flush=True)
+    if not _bench_value_ok(rec, "fit() steps/sec (pfnl b16 crop 32)"):
+        fail(f"18: fit_bench printed {rec}")
+    if trainer.global_step != 1 + BENCH_FIT_STEPS or not all(counts[k]
+                                                              for k in BENCH_TRAIN_KERNELS):
+        fail(f"18: fit_bench at step {trainer.global_step}, launches {counts}")
+    total.update(counts)
+    del trainer
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "pfnl_tpu_torch", "bench", "--steps", str(BENCH_CLI_STEPS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        rec = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        rec = None
+    if proc.returncode != 0 or rec is None or not _bench_value_ok(
+            rec, "HR frames/sec/chip (pfnl 7f x4, 180x320->720x1280, bfloat16, batch 16)"):
+        fail(f"18: {' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+             f"{proc.stderr[-3000:]}")
+    print(f"[18 bench CLI] `{' '.join(cmd[1:])}`: its last line {json.dumps(rec)}; {wall:.1f} s "
+          f"of subprocess on {card}", flush=True)
+    print(f"[18 bench] phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return total
 
 
@@ -2906,6 +3047,7 @@ def main():
     disk_counts = phase_frames_on_disk(smi, fps_4)
     sharded_counts = phase_sharded(smi, lrs)
     family_counts = phase_sharded_families(smi, lrs)
+    bench_counts = phase_bench(smi)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
@@ -2915,10 +3057,10 @@ def main():
     path_launches = {k: counts[k] + train_counts[k] + y_counts[k] + frvsr_counts[k]
                      + flow_counts[k] + eval_counts[k] + easyflow_counts[k] + export_counts[k]
                      + multi_counts[k] + disk_counts[k] + sharded_counts[k] + family_counts[k]
-                     for k in TPU_KERNEL}
+                     + bench_counts[k] for k in TPU_KERNEL}
     path_launches.update(duf_block=duf_counts["duf_block"] + eval_counts["duf_block"]
                          + duf_train_counts["duf_block"] + export_counts["duf_block"]
-                         + family_counts["duf_block"],
+                         + family_counts["duf_block"] + bench_counts["duf_block"],
                          duf_dense=pallas_counts["duf_dense"] + duf_train_counts["duf_dense"]
                          + family_counts["duf_dense"])
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],

@@ -1,5 +1,5 @@
 """Command line of the port — counterpart of `run.py test`, `eval`, `train`,
-`import-tf1`, `prepare` and `parity`:
+`export`, `import-tf1`, `prepare`, `parity` and `bench`:
 
     python -m pfnl_tpu_torch test {pfnl,vespcn,mcresnet,ltdvsr,drvsr,frvsr,duf} --data DIR
         [--save-dir D] [--weights params.npz] [--compute-dtype bfloat16]
@@ -19,6 +19,8 @@
         [--overwrite] [--no-filelists] [--device cuda]
     python -m pfnl_tpu_torch parity MODEL --data DIR [--name N] [--tables-only]
         [and the options of `test`]
+    python -m pfnl_tpu_torch bench [--model pfnl] [--hw 180x320] [--frames 7] [--steps 20]
+        [--device cuda]
 
 `test --dp N` serves the window batches data-parallel over N devices
 (cuda:0..N-1, or N replicas on the CPU with `--device cpu`): run.py's
@@ -71,6 +73,11 @@ the device and writes the train/val filelists there.  `parity` runs `test`
 into `DIR/<seq>/<NAME>/` (`<model>_parity` by default), then prints the
 MATLAB-equivalent Y-channel PSNR/SSIM table of those frames against
 `truth/` (`--tables-only`: the table alone).
+
+`bench` prints the HR frames/s of a family's serving forward at batch 16,
+bf16, as one JSON line (`bench.main`; `python -m pfnl_tpu_torch.bench`
+has bench.py's own flags: the other families' batches, training,
+`--all`).
 
 The device is `cuda` unless `--device` names another: a machine whose CUDA
 fails runs nothing rather than falling back to the CPU.
@@ -177,6 +184,13 @@ def _parser():
     serving(y)
     y.add_argument("--tables-only", action="store_true",
                    help="skip inference, just recompute the table")
+
+    b = sub.add_parser("bench", help="HR frames/s of a family's serving forward (JSON line)")
+    b.add_argument("--model", default="pfnl", choices=sorted(MODEL_REGISTRY))
+    b.add_argument("--hw", default="180x320", help="LR input HxW")
+    b.add_argument("--frames", type=int, default=7)
+    b.add_argument("--steps", type=int, default=20)
+    b.add_argument("--device", default="cuda")
     return p
 
 
@@ -392,10 +406,19 @@ def _train_rank(rank, args, coordinator, num_processes, spawned=False):
             torch.distributed.destroy_process_group()
 
 
+def cmd_bench(args):
+    """run.py cmd_bench (:195-198)."""
+    from pfnl_tpu_torch import bench
+
+    bench.main(model=args.model, hw=args.hw, frames=args.frames, steps=args.steps,
+               device=args.device)
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     {"test": cmd_test, "eval": cmd_eval, "train": cmd_train, "import-tf1": cmd_import_tf1,
-     "prepare": cmd_prepare, "parity": cmd_parity, "export": cmd_export}[args.cmd](args)
+     "prepare": cmd_prepare, "parity": cmd_parity, "export": cmd_export,
+     "bench": cmd_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":

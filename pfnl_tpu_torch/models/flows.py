@@ -80,16 +80,27 @@ class LTDFlow(nn.Module):
         self.conv1 = Conv((9, 9, 32, 32), generator)
         self.conv2 = Conv((3, 3, 32, 2), generator)
 
-    def forward(self, source, reference):
-        """source, reference [N,h,w,C] (h, w multiples of 4) -> flow
-        [N,h,w,2]: two 9x9 convs with 2x2 max-pools, a bilinear resize
-        back to (h, w), a 3x3 conv and tanh."""
+    def forward(self, source, reference, rows=None):
+        """source, reference [N,h,w,C] -> flow [N,h,w,2]: two 9x9 convs with
+        2x2 max-pools (an odd size floors), a bilinear resize back to (h, w),
+        a 3x3 conv and tanh.  rows=(full_h, row0): source and reference are
+        rows row0.. of an image of full_h rows (a band of
+        parallel/spmd.sharded_forward, row0 a multiple of 4), and the band
+        takes its rows of the whole image's resize (full_h // 4 -> full_h is
+        not translation-equivariant where full_h is not a multiple of 4); the
+        rows that would read pooled rows the band does not hold lie in its
+        halo."""
         n, h, w, _ = reference.shape
         x = torch.cat([reference, source], -1).to(self.dtype)
         for conv in (self.conv0, self.conv1):
             x = torch.relu(conv(x))
             x = _max_pool2(x)
-        x = resize_bilinear(x, (h, w))
+        if rows is None:
+            x = resize_bilinear(x, (h, w))
+        else:
+            full_h, row0 = rows
+            x = resize_rows(x, full_h // 4, row0 // 4, (full_h, w), (row0, row0 + h), "bilinear",
+                            strict=False)
         return torch.tanh(self.conv2(x))
 
 

@@ -45,16 +45,17 @@ class LTDVSR(YFamily):
             x = torch.relu(getattr(self, f"conv{b}_{i}")(x))
         return depth_to_space(getattr(self, f"conv{b}_2")(x), self.scale)  # no activation
 
-    def forward(self, frames_lr: torch.Tensor, plain: bool = False, row0: int = 0) -> dict:
-        """row0: the row of the whole image that is the first of frames_lr (a
-        band of parallel/spmd.sharded_forward: the warps round their
-        coordinates as the whole image's, `ops.warp.band_flow`)."""
+    def forward(self, frames_lr: torch.Tensor, plain: bool = False, rows=None) -> dict:
+        """rows=(full_h, row0): frames_lr is rows row0.. of an image of full_h
+        rows (a band of parallel/spmd.sharded_forward): the flow net takes
+        its rows of the whole image's resize, and the warps round their
+        coordinates as the whole image's (`ops.warp.band_flow`)."""
         n, t, h, w, _ = frames_lr.shape
         out_h, out_w = h * self.scale, w * self.scale
         idx0 = t // 2
         frames_y, ref_y, flat, ref_rep = y_and_pairs(frames_lr, self.dtype)
-        uv = self.flow(flat, ref_rep)
-        warped = splat(flat, uv, 1, plain, row0).reshape(n, t, h, w, 1)
+        uv = self.flow(flat, ref_rep, rows)
+        warped = splat(flat, uv, 1, plain, 0 if rows is None else rows[1]).reshape(n, t, h, w, 1)
 
         def frames(k):  # the k warped frames around the centre, as channels
             lo = idx0 - k // 2

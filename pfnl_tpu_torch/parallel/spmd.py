@@ -238,8 +238,13 @@ def row_geometry(model) -> RowGeometry:
         return RowGeometry(4, _round_up(EASYFLOW_REACH + 2 + 13, 4))
     if isinstance(model, LTDVSR):
         # LTDFlow; the R=1 splat; a branch's 5x5 and three 3x3 convs (the
-        # temporal weights' 5x5 convs on the HR grid read 3 LR rows): 26 -> 28
-        return RowGeometry(4, _round_up(LTDFLOW_REACH + 1 + 5, 4))
+        # temporal weights' 5x5 convs on the HR grid read 3 LR rows): 26 -> 28.
+        # Any height: a band takes its rows of the whole image's resize back
+        # from the pools (`LTDFlow.forward(rows=)`), whose taps sit less than one
+        # pooled row above a multiple of 4's, so the zero padding at a band's top
+        # can reach 22 of its rows (19 at a multiple of 4); at its bottom, 23 at
+        # any height
+        return RowGeometry(4, _round_up(LTDFLOW_REACH + 1 + 5, 4), ragged=True)
     if isinstance(model, DRVSR):
         # EasyFlow; SPMC's x4 splat (2 rows) and SRStep on the HR grid up to
         # the last frame's decode: the encoder to the LR grid, one ConvLSTM conv
@@ -281,14 +286,17 @@ def gather_rows(bands, lo: int, hi: int, device):
     return torch.cat(parts, 1) if len(parts) > 1 else parts[0].contiguous()
 
 
-def _window_sr(model, x, row0: int = 0):
-    """A window family's SR of x [N,T,h,w,3] float32, [N,T',4h,4w,C] (the
+def _window_sr(model, x, h: int, row0: int = 0):
+    """A window family's SR of x [N,T,h',w,3] float32, [N,T',4h',4w,C] (the
     dict's "sr" but for DUF, which returns it; DRVSR's full form without
-    its `warped_lr`, which nothing here reads).  row0: the row of the whole
-    image that is x's first, so that the warps round their coordinates as
-    the whole image's (`ops.warp.band_flow`; DUF has no warp)."""
+    its `warped_lr`, which nothing here reads).  x is rows row0.. of an
+    image of h rows, so that the warps round their coordinates as the
+    whole image's (`ops.warp.band_flow`; DUF has no warp) and LTDVSR's flow
+    net takes its rows of the whole image's resize."""
     if isinstance(model, DUF):
         return model(x)
+    if isinstance(model, LTDVSR):
+        return model(x, rows=(h, row0))["sr"]
     if isinstance(model, DRVSR):
         return model(x, warped_lr=False, row0=row0)["sr"]
     return model(x, row0=row0)["sr"]
@@ -299,7 +307,7 @@ def _window_bands(models, xd, devs, rows, h, halo):
     of xd [n,T,h,W,3] -> the bands of SR [n,T',4(r1-r0),4W,C] float32."""
     out = []
     for m, dev, (r0, r1), (e0, e1) in zip(models, devs, rows, extents(rows, h, halo)):
-        sr = _window_sr(m, xd[:, :, e0:e1].to(dev, non_blocking=True).contiguous(), e0)
+        sr = _window_sr(m, xd[:, :, e0:e1].to(dev, non_blocking=True).contiguous(), h, e0)
         s = m.scale
         out.append(sr[:, :, s * (r0 - e0):s * (r1 - e0)])
     return out
@@ -357,7 +365,9 @@ def sharded_forward(model, devices, space: int = 1, impl: str = "auto"):
     "chunked".
 
     The window families (VESPCN, MCResNet, LTDVSR, DRVSR, DUF): bands of
-    multiples of `row_geometry(model).align` rows; each band runs the
+    multiples of `row_geometry(model).align` rows (LTDVSR's bottom band
+    takes the rest of any height, its flow net its rows of the whole
+    image's resize, as FRVSR's); each band runs the
     family's own forward (`_window_sr`: kernel 7, 8 or 9, and 10 under
     conv3d_impl="pallas", once a band) on its rows and row_geometry's halo
     rows a side, clipped to the image, and keeps its own output rows.  FRVSR: each step

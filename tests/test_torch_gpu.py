@@ -926,3 +926,28 @@ def test_sharded_forward_runs_kernels_1_to_4_on_every_band(gen, data, space):
         ref = model(x)
     assert got.shape == ref.shape == (2 * data, 1, 520, 528, 3)
     assert ((got - ref).norm() / ref.norm()).item() <= 1e-3
+
+
+# bench.main's launches a serving forward of each family at LR 132x132 (66x66 = 4356 non-local
+# positions, above the dense limit, so PFNL runs kernel 1): DRVSR `last_only`, FRVSR's 10
+# streamed frames, DUF-52L in eval mode
+BENCH_LAUNCHES = {"pfnl": {"nonlocal_flash": 1, "pfrb_a": 20, "pfrb_b": 20, "pfnl_tail": 1},
+                  "vespcn": {"bounded_splat": 1}, "ltdvsr": {"bounded_splat": 1},
+                  "mcresnet": {"bounded_splat": 1}, "drvsr": {"spmc_splat": 1},
+                  "frvsr": {"bounded_splat": 9}, "duf": {"duf_block": 24}}
+
+
+@pytest.mark.parametrize("model", list(BENCH_LAUNCHES))
+def test_bench_main_launches_each_familys_kernels(gen, model, capsys):
+    """`pfnl_tpu_torch.bench.main` at batch 1, 2 steps: a warm-up call and
+    three timed calls of 2 forwards, each launching the family's kernels and
+    no other, and one record with a positive rate."""
+    import json
+
+    from pfnl_tpu_torch import bench
+
+    reset_launches()
+    fps = bench.main(model, "132x132", bench._MODEL_FRAMES[model], 2, 1, "bfloat16", "cuda")
+    assert dict(launches) == {k: 8 * v for k, v in BENCH_LAUNCHES[model].items()}
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert fps > 0 and rec["value"] == round(fps, 3)

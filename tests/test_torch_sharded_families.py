@@ -10,8 +10,10 @@ than the halo; (b) once to JAX's unsharded `model.apply(...)["sr"]`, the
 JAX splats running the Pallas kernel in interpret mode (JAX's GSPMD
 `sharded_forward` does not compute it for these families: its Pallas
 splat is a per-chip program); (c) with half the halo, to show that the
-band-edge rows then miss.  Also the geometry: `row_bands`' alignment and
-raises, `gather_rows` across several bands, the refusals.
+band-edge rows then miss; (d) LTDVSR at heights that are not a multiple
+of 4, bitwise the unsharded forward and within 2e-5 of JAX's.  Also the
+geometry: `row_bands`' alignment and raises, `gather_rows` across several
+bands, the refusals.
 DRVSR and DUF are in test_torch_sharded_drvsr_duf.py."""
 
 import numpy as np
@@ -157,11 +159,38 @@ def test_frvsr_flow_misses_with_half_the_halo():
             assert missed or err.max() == 0
 
 
+# LR heights that are not a multiple of 4: LTDVSR's pools floor and its flow net resizes
+# h // 4 -> h (at space 4, 30 rows make bands of 8, 8, 8, 6 and 33 rows 8, 8, 8, 9)
+LTDVSR_RAGGED_ROWS = (30, 33)
+
+
+def _ltdvsr_ragged_case(rows):
+    key = ("ltdvsr", rows)
+    if key not in _CASES:
+        _CASES[key] = build_case(LTDVSR, JLTDVSR, {"num_frames": 5}, (1, 5, rows, 16, 3),
+                                 seed=20 + rows)
+    return _CASES[key]
+
+
+@pytest.mark.parametrize("space", (2, 4))
+@pytest.mark.parametrize("rows", LTDVSR_RAGGED_ROWS)
+def test_ltdvsr_sharded_forward_at_any_height(rows, space):
+    """The bottom band takes the rows past the last multiple of 4, and every
+    band its rows of the whole image's resize back from the pools: bitwise
+    the port's unsharded forward, within JAX's tolerance of its apply."""
+    model, x, want, want_jax = _ltdvsr_ragged_case(rows)
+    got = sharded_forward(model, ["cpu"] * space, space=space)(x)
+    print(f"LTDVSR {rows} rows, space {space}: bands {row_bands(rows, space, 4, True)}, max "
+          f"|sharded - JAX| {np.abs(got.numpy() - want_jax).max():.3e}")
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(), want_jax, atol=FAMILIES["ltdvsr"][4], rtol=0)
+
+
 def test_geometry_of_each_family():
     """The table's (align, halo, ragged), functions of the configuration."""
     assert row_geometry(VESPCN()) == (4, 48, False)
     assert row_geometry(MCResNet()) == (4, 48, False)
-    assert row_geometry(LTDVSR()) == (4, 28, False)
+    assert row_geometry(LTDVSR()) == (4, 28, True)
     assert row_geometry(FRVSR()) == (8, 96, True)
     assert row_geometry(FRVSR(mf=16, num_blocks=2)) == (8, 80, True)
 
