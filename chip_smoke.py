@@ -229,13 +229,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      losses printed side by side) and fit_bench of 50 steps, kernels 2-6
      launched in each; then `python -m pfnl_tpu_torch bench --steps 5` as a
      subprocess, its last line bench.py's record; the phase's seconds.
+ 19. the convergence sweep's path (pfnl_tpu_torch/convergence.py):
+     make_rich_dataset with CONV_SEQS sequences (6 to train, 2 to
+     evaluate), then run_family for each of the seven families at its
+     preset, CONV_STEPS steps with evaluations every CONV_EVAL_EVERY (the
+     staged families switching at half the steps): each family's bicubic
+     floor, curve, checks, seconds and launches; it fails on a non-finite
+     loss, a non-finite evaluation (DUF's step 0 exempt: its init's moving
+     variance of 0), a last evaluation not above the first finite one
+     (above -100 dB, the report's filter), a false staged or LSTM-clip
+     check, or a family's kernels not launched (CONV_KERNELS).
+ 20. the parity rehearsal's pipeline (pfnl_tpu_torch/parity_rehearsal.py)
+     at one Vid4 geometry (REHEARSAL_SEQ): render_dataset, then `prepare`,
+     synth_tf1_ckpt (the TF1 writer), `import-tf1 pfnl` and `parity pfnl`
+     through the port's CLI on the card: each stage's seconds, kernels 1-4
+     launched once a forward batch of 4 windows (K2 and K3 20 times; 6480
+     non-local positions, so K1 runs), a finite table.
 
 The second-to-last line is a JSON summary of the kernels: launches from
 the path that runs each (phase 4 plus 5c for kernels 1-6, 6 and 8 for
 7, 6 for 8, 7b for 9, 7c for 10; and phase 9b's kernel path for 7 and 8,
 phase 10 for 1-4 and 7-9, 11b's kernel-10 path for 10, 11c for 9, 12b
 for 7, 13 for 1-4, 7 and 9, 14a-c for 1-6, 15d for 1-6, 16 for 1-4, 17
-for 7-10, 18 for 1-9; each
+for 7-10, 18 for 1-9, 19 for 2-9, 20 for 1-4; each
 counted where the custom op's CUDA kernel launches); errors and times at the shape named in
 TIMED (bf16 but for kernels 5 and 6, float32 at the training shape);
 `bound_ms`, the least time the card could take for the same work (the larger of the
@@ -389,6 +405,16 @@ BENCH_STEPS, BENCH_CALLS = 10, 4
 BENCH_TRAIN_KERNELS = ("pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a")
 BENCH_FIT_STEPS = 50                    # the bench CLI's --train-fit minimum
 BENCH_CLI_STEPS = 5
+# phase 19: the convergence sweep's path at a short run: evaluations at steps 0, 40 and 80
+CONV_SEQS, CONV_STEPS, CONV_EVAL_EVERY = 8, 120, 40
+CONV_KERNELS = {"pfnl": ("pfrb_a", "pfrb_b", "pfnl_tail", "pfrb_bwd_b", "pfrb_bwd_a"),
+                "vespcn": ("bounded_splat",), "ltdvsr": ("bounded_splat",),
+                "mcresnet": ("bounded_splat",), "drvsr": ("spmc_splat",),
+                "frvsr": ("bounded_splat",), "duf": ("duf_block",)}
+CONV_STAGED = ("vespcn", "ltdvsr", "mcresnet", "drvsr")
+# phase 20: the rehearsal at Vid4 calendar's geometry, 9 frames: 3 forward batches of 4 windows
+REHEARSAL_SEQ = ("calendar", 9, 576, 720)
+REHEARSAL_BATCHES = 3
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
@@ -3012,6 +3038,115 @@ def phase_bench(card):
     return total
 
 
+def _conv_check(fam, curve, checks, losses, counts):
+    """19: what fails a family of the convergence path, or None."""
+    if len(losses) != CONV_STEPS:
+        return f"{len(losses)} training steps, want {CONV_STEPS}"
+    finite = torch.isfinite(torch.stack(losses))
+    if not finite.all():
+        return f"{int((~finite).sum())} non-finite losses, the first at step {int((~finite).nonzero()[0])}"
+    steps = list(range(0, CONV_STEPS, CONV_EVAL_EVERY))
+    if [st for st, _ in curve] != steps:
+        return f"evaluations at {[st for st, _ in curve]}, want {steps}"
+    points = curve[1:] if fam == "duf" else curve
+    if not all(math.isfinite(p) for _, p in points):
+        return f"a non-finite evaluation: {curve}"
+    # the first point the report counts (convergence.assemble's filter: DUF's step 0 logs
+    # NaN as the int64 floor, -9.2e12, as JAX's evaluator does)
+    first = next((p for _, p in curve if math.isfinite(p) and p > -100), None)
+    if first is None or not curve[-1][1] > first:
+        return f"the last evaluation {curve[-1][1]} is not above the first finite {first}"
+    want = ({"flow_frozen_stage0", "flow_moves_stage1"} if fam in CONV_STAGED else set()) | (
+        {"lstm_clip_selects_params"} if fam == "drvsr" else set())
+    if set(checks) != want or not all(checks.values()):
+        return f"checks {checks}, want {sorted(want)} all true"
+    if not all(counts[k] for k in CONV_KERNELS[fam]):
+        return f"launches {counts}, want {CONV_KERNELS[fam]} each launched"
+    return None
+
+
+def phase_convergence(card):
+    """19: the convergence sweep's path (see the module docstring); returns
+    the launches of the seven families' runs."""
+    from pfnl_tpu_torch import convergence
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    losses = []
+    real_step = Trainer.step
+
+    def step(self, *args, **kwargs):
+        out = real_step(self, *args, **kwargs)
+        losses.append(out["loss"])
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_list, val_list = convergence.make_rich_dataset(os.path.join(tmp, "ds"),
+                                                             num_seqs=CONV_SEQS)
+        print(f"[19 convergence] make_rich_dataset: {CONV_SEQS} sequences of 20 frames at "
+              f"160x256 in {time.perf_counter() - t0:.1f} s", flush=True)
+        work = os.path.join(tmp, "runs")
+        Trainer.step = step
+        try:
+            for fam in CONV_KERNELS:
+                losses.clear()
+                torch.cuda.synchronize()
+                reset_launches()
+                curve, checks, wall, _ = convergence.run_family(
+                    fam, train_list, val_list, CONV_STEPS, CONV_EVAL_EVERY, work, device="cuda")
+                torch.cuda.synchronize()
+                counts = {k: launches[k] for k in KERNELS}
+                total.update(counts)
+                with open(os.path.join(work, "baselines.json")) as f:
+                    floor = json.load(f)[fam]
+                print(f"[19 convergence] {fam}: {CONV_STEPS} steps and {len(curve)} evaluations "
+                      f"in {wall:.1f} s ({CONV_STEPS / wall:.2f} steps/s); eval PSNR "
+                      f"{[(st, round(p, 4)) for st, p in curve]}, bicubic {floor:.4f} dB; "
+                      f"checks {checks}; last loss {losses[-1].item():.6f}; launches "
+                      f"{ {k: v for k, v in counts.items() if v} } on {card}", flush=True)
+                why = _conv_check(fam, curve, checks, losses, counts)
+                if why:
+                    fail(f"19 {fam}: {why}")
+        finally:
+            Trainer.step = real_step
+    print(f"[19 convergence] phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+def phase_rehearsal(card):
+    """20: the parity rehearsal's five stages at REHEARSAL_SEQ on the card
+    (see the module docstring); returns the launches of stage 5."""
+    from pfnl_tpu_torch.parity_rehearsal import rehearse
+
+    t_phase = time.perf_counter()
+    name, frames, h, w = REHEARSAL_SEQ
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            table, stages, counts = rehearse(os.path.join(tmp, "data"), os.path.join(tmp, "ck"),
+                                             [REHEARSAL_SEQ], "cuda")
+        n_out = len(glob.glob(os.path.join(tmp, "data", name, "rehearsal", "*.png")))
+    print(f"[20 rehearsal] {name} {frames} frames at {h}x{w} (LR {h // 4}x{w // 4}, "
+          f"{(h // 8) * (w // 8)} non-local positions): "
+          + ", ".join(f"{st} {dt:.1f} s" for st, dt in stages) + f"; table {table}; "
+          f"{n_out} frames written; launches { {k: v for k, v in counts.items() if v} } "
+          f"on {card}", flush=True)
+    want = {"nonlocal_flash": REHEARSAL_BATCHES, "pfrb_a": 20 * REHEARSAL_BATCHES,
+            "pfrb_b": 20 * REHEARSAL_BATCHES, "pfnl_tail": REHEARSAL_BATCHES}
+    if len(stages) != 5 or n_out != frames:
+        fail(f"20: stages {stages}, {n_out} frames written of {frames}")
+    if set(table) != {name, "average"} or not all(math.isfinite(v) for r in table.values()
+                                                  for v in r):
+        fail(f"20: the table {table}")
+    if counts != {k: want.get(k, 0) for k in counts}:
+        fail(f"20: launches {counts}, want {want}")
+    print(f"[20 rehearsal] phase 20 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -3048,6 +3183,8 @@ def main():
     sharded_counts = phase_sharded(smi, lrs)
     family_counts = phase_sharded_families(smi, lrs)
     bench_counts = phase_bench(smi)
+    conv_counts = phase_convergence(smi)
+    rehearsal_counts = phase_rehearsal(smi)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
@@ -3057,10 +3194,12 @@ def main():
     path_launches = {k: counts[k] + train_counts[k] + y_counts[k] + frvsr_counts[k]
                      + flow_counts[k] + eval_counts[k] + easyflow_counts[k] + export_counts[k]
                      + multi_counts[k] + disk_counts[k] + sharded_counts[k] + family_counts[k]
-                     + bench_counts[k] for k in TPU_KERNEL}
+                     + bench_counts[k] + conv_counts[k] + rehearsal_counts[k]
+                     for k in TPU_KERNEL}
     path_launches.update(duf_block=duf_counts["duf_block"] + eval_counts["duf_block"]
                          + duf_train_counts["duf_block"] + export_counts["duf_block"]
-                         + family_counts["duf_block"] + bench_counts["duf_block"],
+                         + family_counts["duf_block"] + bench_counts["duf_block"]
+                         + conv_counts["duf_block"],
                          duf_dense=pallas_counts["duf_dense"] + duf_train_counts["duf_dense"]
                          + family_counts["duf_dense"])
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],

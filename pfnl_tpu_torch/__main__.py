@@ -85,7 +85,6 @@ fails runs nothing rather than falling back to the CPU.
 
 import argparse
 import os
-import sys
 
 import torch
 
@@ -300,14 +299,15 @@ def cmd_prepare(args):
 
 def cmd_parity(args):
     """run.py cmd_parity (:211-220): `test` over a dataset dir into
-    <seq>/<name>/, then the MATLAB-equivalent Y-channel PSNR/SSIM table."""
+    <seq>/<name>/, then the MATLAB-equivalent Y-channel PSNR/SSIM table,
+    which it prints and returns ({sequence or "average": (PSNR, SSIM)})."""
     from pfnl_tpu_torch.eval.tables import dataset_table
 
     args.name = args.name or f"{args.model}_parity"
     if not args.tables_only:
         args.start = 0
         cmd_test(args)
-    dataset_table(args.data, args.name)
+    return dataset_table(args.data, args.name)
 
 
 def cmd_eval(args):
@@ -415,11 +415,12 @@ def cmd_bench(args):
 
 
 def main(argv=None):
+    """Run one command; returns what it returns (`parity`: its table)."""
     args = _parser().parse_args(argv)
-    {"test": cmd_test, "eval": cmd_eval, "train": cmd_train, "import-tf1": cmd_import_tf1,
-     "prepare": cmd_prepare, "parity": cmd_parity, "export": cmd_export,
-     "bench": cmd_bench}[args.cmd](args)
+    return {"test": cmd_test, "eval": cmd_eval, "train": cmd_train,
+            "import-tf1": cmd_import_tf1, "prepare": cmd_prepare, "parity": cmd_parity,
+            "export": cmd_export, "bench": cmd_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    main()

@@ -52,6 +52,8 @@ import traceback
 import numpy as np
 import torch
 
+from pfnl_tpu_torch.utils.device import tf32_off
+
 _REFERENCE_FPS = 4.2  # PFNL paper ~0.24 s per 720p frame (TF1, single GPU)
 
 # bench.py's per-model temporal window (reference configs) and batch: the same
@@ -60,18 +62,6 @@ _MODEL_FRAMES = {"pfnl": 7, "vespcn": 3, "ltdvsr": 5, "mcresnet": 5,
                  "drvsr": 3, "frvsr": 10, "duf": 7}
 _MODEL_BATCH = {"pfnl": 16, "vespcn": 16, "ltdvsr": 16, "mcresnet": 16,
                 "drvsr": 8, "frvsr": 8, "duf": 1}
-
-
-@contextlib.contextmanager
-def _tf32_off():
-    """float32 matmuls and cuDNN convolutions in full float32 inside, the
-    previous settings restored after."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _elapsed(fn, device: torch.device) -> float:
@@ -139,7 +129,7 @@ def main(model: str = "pfnl", hw: str = "180x320", frames: int = 7,
     h, w = (int(v) for v in hw.split("x"))
     dev = torch.device(device)
     compute = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    with _tf32_off():
+    with tf32_off():
         m = seeded_model(model, compute, 0, device=dev, num_frames=frames)
         x = torch.from_numpy(
             np.random.default_rng(0).random((batch, frames, h, w, 3), np.float32)).to(dev)
@@ -177,7 +167,7 @@ def train_bench(model: str = "pfnl", steps: int = 10, batch: int = 16, in_size: 
 
     cfg = preset(model, in_size=in_size, batch_size=batch, num_frames=frames, reload=False,
                  compute_dtype=dtype)
-    with tempfile.TemporaryDirectory() as workdir, _tf32_off():
+    with tempfile.TemporaryDirectory() as workdir, tf32_off():
         tr = Trainer(cfg, workdir=workdir, device=device)
         gt = _gt_batch(cfg, tr.device)
         last = [tr.step(gt, tr.step_generator(0))]
@@ -222,7 +212,7 @@ def fit_bench(model: str = "pfnl", steps: int = 100, batch: int = 16, in_size: i
 
     cfg = preset(model, in_size=in_size, batch_size=batch, num_frames=frames, reload=False)
     quiet = lambda *a, **k: None  # noqa: E731
-    with tempfile.TemporaryDirectory() as workdir, _tf32_off():
+    with tempfile.TemporaryDirectory() as workdir, tf32_off():
         tr = Trainer(cfg, workdir=workdir, device=device)
         pipe = _FixedPipeline(_gt_batch(cfg, tr.device))
         tr.fit(pipe, max_steps=1, save_every=10**9, print_fn=quiet)

@@ -1,6 +1,8 @@
-"""TF-free reader for TensorFlow-1 checkpoints (TensorBundle V2 format)
-plus the PFNL name-mapping importer — a copy of pfnl_tpu/utils/tf1_ckpt.py
-(numpy only), so that the port loads nothing of the JAX package.
+"""TF-free reader and writer for TensorFlow-1 checkpoints (TensorBundle V2
+format) plus the PFNL name-mapping importer — the reader and importer a
+copy of pfnl_tpu/utils/tf1_ckpt.py (numpy only), so that the port loads
+nothing of the JAX package; the writer (`save_tf1_checkpoint`) the port's
+own, for machines without TensorFlow.
 
 The reference distributes pre-trained TF1 checkpoints (loader
 reference model/base_model.py:231-243).  This module reads the
@@ -213,6 +215,151 @@ def load_tf1_checkpoint(prefix: str) -> Dict[str, np.ndarray]:
         for f in shards.values():
             f.close()
     return out
+
+
+# ------------------------------------------------------------------ writing
+
+_CRC32C_POLY = 0x82F63B78        # Castagnoli, reflected
+_CRC_MASK_DELTA = 0xA282EAD8     # leveldb/TF crc32c::Mask
+_BLOCK_SIZE = 262144             # TF's table_options.h block_size
+_RESTART_INTERVAL = 16           # its block_restart_interval (the index block: 1)
+_FROM_NUMPY = {np.dtype(v): k for k, v in _DTYPES.items() if v is not None}
+
+
+def _crc_table() -> list:
+    t = np.arange(256, dtype=np.uint32)
+    for _ in range(8):
+        t = np.where(t & 1, (t >> 1) ^ np.uint32(_CRC32C_POLY), t >> 1).astype(np.uint32)
+    return [int(v) for v in t]
+
+
+_CRC_TABLE = _crc_table()
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli) of `data`, as TensorFlow's crc32c::Value, a byte
+    at a time (about 2 s for PFNL's 11 MB of weights)."""
+    table, reg = _CRC_TABLE, 0xFFFFFFFF
+    for b in data:
+        reg = table[(reg ^ b) & 0xFF] ^ (reg >> 8)
+    return reg ^ 0xFFFFFFFF
+
+
+def masked_crc32c(data: bytes) -> int:
+    """crc32c::Mask(crc32c::Value(data)): what TF stores beside its data."""
+    c = crc32c(data)
+    return ((((c >> 15) | (c << 17)) & 0xFFFFFFFF) + _CRC_MASK_DELTA) & 0xFFFFFFFF
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _field(number: int, value) -> bytes:
+    """One protobuf field: an int as a varint, bytes as length-delimited."""
+    if isinstance(value, (bytes, bytearray)):
+        return _varint(number << 3 | 2) + _varint(len(value)) + bytes(value)
+    return _varint(number << 3) + _varint(value)
+
+
+def _entry_proto(dtype_enum: int, shape, offset: int, size: int, crc: int) -> bytes:
+    """BundleEntryProto, proto3: fields at their default value are left out
+    (shard_id 0 always, offset and size where 0); the shape is always set."""
+    shape_proto = b"".join(_field(2, _field(1, d) if d else b"") for d in shape)
+    out = _field(1, dtype_enum) + _field(2, shape_proto)
+    if offset:
+        out += _field(4, offset)
+    if size:
+        out += _field(5, size)
+    if crc:
+        out += _varint(6 << 3 | 5) + struct.pack("<I", crc)
+    return out
+
+
+def _block(entries, restart_interval: int) -> bytes:
+    """One table block of sorted (key, value) pairs, prefix-compressed,
+    with its restart array."""
+    out, restarts, last = bytearray(), [], b""
+    for i, (key, value) in enumerate(entries):
+        shared = 0
+        if i % restart_interval == 0:
+            restarts.append(len(out))
+        else:
+            while shared < min(len(last), len(key)) and last[shared] == key[shared]:
+                shared += 1
+        out += _varint(shared) + _varint(len(key) - shared) + _varint(len(value))
+        out += key[shared:] + value
+        last = key
+    restarts = restarts or [0]
+    out += struct.pack(f"<{len(restarts)}I", *restarts) + struct.pack("<I", len(restarts))
+    return bytes(out)
+
+
+def _write_table(path: str, items) -> None:
+    """A LevelDB-format table of sorted (key, value) pairs as TF's
+    TableBuilder writes it uncompressed: data blocks of about _BLOCK_SIZE,
+    an empty metaindex block, an index block holding each data block's last
+    key and handle, each block followed by its type byte (0) and the masked
+    crc32c of both, which TF's reader checks; then the 48-byte footer."""
+    out = bytearray()
+
+    def put(contents: bytes) -> bytes:
+        handle = _varint(len(out)) + _varint(len(contents))
+        trailer = b"\x00"
+        out.extend(contents + trailer
+                   + struct.pack("<I", masked_crc32c(contents + trailer)))
+        return handle
+
+    index, pending, pending_bytes = [], [], 0
+    for key, value in items:
+        pending.append((key, value))
+        pending_bytes += len(key) + len(value) + 3
+        if pending_bytes >= _BLOCK_SIZE:
+            index.append((key, put(_block(pending, _RESTART_INTERVAL))))
+            pending, pending_bytes = [], 0
+    if pending:
+        index.append((pending[-1][0], put(_block(pending, _RESTART_INTERVAL))))
+    meta = put(_block([], 1))
+    idx = put(_block(index, 1))
+    footer = (meta + idx).ljust(40, b"\x00") + struct.pack("<Q", _TABLE_MAGIC)
+    with open(path, "wb") as f:
+        f.write(bytes(out) + footer)
+
+
+def save_tf1_checkpoint(prefix: str, arrays: Dict[str, np.ndarray]) -> None:
+    """Write `arrays` ({variable name: numpy array}) as a TF1 checkpoint,
+    `<prefix>.index` and `<prefix>.data-00000-of-00001`, as TensorFlow's
+    BundleWriter does (tensor_bundle.cc): the tensors' bytes little-endian
+    in C order, back to back in sorted name order, each entry with its
+    dtype, shape, offset, size and masked crc32c; the "" key holds the
+    BundleHeaderProto (one shard, little-endian, version producer 1).  The
+    inverse of `load_tf1_checkpoint`, with no TensorFlow needed; TF's own
+    reader (tf.train.load_checkpoint) accepts the files."""
+    entries, offset = [], 0
+    data_path = prefix + ".data-00000-of-00001"
+    os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
+    with open(data_path + ".tmp", "wb") as f:
+        for name in sorted(arrays):
+            arr = np.asarray(arrays[name])
+            if arr.dtype not in _FROM_NUMPY:
+                raise ValueError(f"{name}: dtype {arr.dtype} has no TF1 checkpoint encoding")
+            raw = np.ascontiguousarray(arr, arr.dtype.newbyteorder("<")).tobytes()
+            f.write(raw)
+            entries.append((name.encode("utf-8"), _entry_proto(
+                _FROM_NUMPY[arr.dtype], arr.shape, offset, len(raw), masked_crc32c(raw))))
+            offset += len(raw)
+    header = _field(1, 1) + _field(3, _field(1, 1))
+    _write_table(prefix + ".index.tmp", [(b"", header)] + entries)
+    os.replace(data_path + ".tmp", data_path)
+    os.replace(prefix + ".index.tmp", prefix + ".index")
 
 
 # --------------------------------------------------------------- PFNL import
