@@ -117,6 +117,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
         families switching two steps into the timed window: launches a step,
         finite losses, steady steps/s, peak memory, and on the kernel path
         the device's busy ms a step (torch.profiler);
+     c. VESPCN's check of 9a again on a batch from each of GRAD_SEEDS (the
+        pipeline and the flips seeded so): each run's worst parameter and
+        its relative L2, within GRAD_TOL; a read above GRAD_TRAP gets that
+        parameter's gradient on the plain path in float64 (the model's SR
+        output alone float32) on the same batch and init, and each float32
+        path's relative L2 from it;
  10. the Evaluator on the card for all seven families (full width, float32,
      seeded weights), one batch of 4 windows at eval_in_size 128x240 over
      four seeded 20-frame sequences in memory: finite PSNR, the kernels'
@@ -245,13 +251,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      through the port's CLI on the card: each stage's seconds, kernels 1-4
      launched once a forward batch of 4 windows (K2 and K3 20 times; 6480
      non-local positions, so K1 runs), a finite table.
+ 21. a. the seeded truncated-normal draws (models/blocks.truncated_normal)
+     at the shapes INIT_PINS holds, on this machine's torch: each draw's
+     first eight values, exact sum and sha256 equal to the pins
+     tests/test_torch_init.py holds, failing on any difference; printed
+     beside them, torch's version and whether its own
+     nn.init.trunc_normal_ gives the same values (information, not a
+     check);
+     b. the overfit diagnostic's path (pfnl_tpu_torch/diag_overfit.py):
+     run_variant for VESPCN, baseline and zero-flow, on make_rich_dataset
+     with CONV_SEQS sequences, DIAG_STEPS steps with evaluations every
+     DIAG_EVAL_EVERY on the validation list and the first three training
+     sequences: each variant's curves, losses, seconds and launches; it
+     fails on a non-finite loss or evaluation, a zero-flow easyflow.c5
+     kernel not zero at the end, a baseline flow net that did not move in
+     stage 1, or no K7 launch.
 
 The second-to-last line is a JSON summary of the kernels: launches from
 the path that runs each (phase 4 plus 5c for kernels 1-6, 6 and 8 for
 7, 6 for 8, 7b for 9, 7c for 10; and phase 9b's kernel path for 7 and 8,
 phase 10 for 1-4 and 7-9, 11b's kernel-10 path for 10, 11c for 9, 12b
 for 7, 13 for 1-4, 7 and 9, 14a-c for 1-6, 15d for 1-6, 16 for 1-4, 17
-for 7-10, 18 for 1-9, 19 for 2-9, 20 for 1-4; each
+for 7-10, 18 for 1-9, 19 for 2-9, 20 for 1-4, 21b for 7; each
 counted where the custom op's CUDA kernel launches); errors and times at the shape named in
 TIMED (bf16 but for kernels 5 and 6, float32 at the training shape);
 `bound_ms`, the least time the card could take for the same work (the larger of the
@@ -415,7 +436,33 @@ CONV_STAGED = ("vespcn", "ltdvsr", "mcresnet", "drvsr")
 # phase 20: the rehearsal at Vid4 calendar's geometry, 9 frames: 3 forward batches of 4 windows
 REHEARSAL_SEQ = ("calendar", 9, 576, 720)
 REHEARSAL_BATCHES = 3
+# phase 9c: VESPCN's gradient check on a batch from each seed; a worst read above GRAD_TRAP
+# is held against the float64 plain gradient
+GRAD_SEEDS = (1, 2, 3, 4, 5)
+GRAD_TRAP = 1e-5
+# phase 21b: the overfit diagnostic at a short run, evaluations at steps 0 and 30
+DIAG_STEPS, DIAG_EVAL_EVERY = 60, 30
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 21a: the seed-0 truncated-normal draws (models/blocks.truncated_normal) that
+# tests/test_torch_init.py pins: (shape, the first eight values, the exact float64 sum
+# (math.fsum), the sha256 of the float32 bytes), each to be equal on the card's torch
+INIT_PINS = {
+    "conv_lecun": ((3, 3, 128, 128), [
+        -0.0002999955613631755, 0.02323022298514843, -0.04158523306250572,
+        -0.034891728311777115, -0.016023634001612663, 0.010936112143099308,
+        -0.0007939743809401989, 0.03909021615982056], 4.38929295702161,
+        "a2bc4f50762f8a2750823f98da6b9afd45958f77bdd373c4407947a6c8faf49a"),
+    "he_trunc_normal": ((3, 3, 3, 64, 16), [
+        -0.0003464050532784313, 0.026823950931429863, -0.04801849275827408,
+        -0.0402894988656044, -0.018502498045563698, 0.012627935037016869,
+        -0.0009168026153929532, 0.045137494802474976], 7.208792638101841,
+        "6251aab55c2398d29af769a025323ff1945870bafba417b2ef8e211be936016c"),
+    "gates": ((3, 3, 256, 512), [
+        -8.956512829172425e-06, 0.0006935495766811073, -0.0012415472883731127,
+        -0.0010417094454169273, -0.000478393369121477, 0.0003265029226895422,
+        -2.370448964938987e-05, 0.0011670573148876429], 0.05346113455988655,
+        "f454c544f25c6640d7a4558105e986efe35270650462606f2afbed26d7a25153"),
+}
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
 TF32_ENTRIES = ("pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
@@ -1723,7 +1770,59 @@ def phase_flow_training(card):
         print(f"[9 {family}] steady steps/s: kernels {rate:.3f}, plain {plain_rate:.3f}; the "
               f"splat adjoints {adjoint_ms:.3f} ms a step (batch {cfg.batch_size}, float32, "
               f"TF32 off) on {card}", flush=True)
+    _vespcn_grad_seeds(seqs, mem, card)
     return total
+
+
+def _vespcn_grad_seeds(seqs, mem, card):
+    """9c: VESPCN's gradients, the kernel path against the plain path, on a
+    batch from each of GRAD_SEEDS (see the module docstring)."""
+    from pfnl_tpu_torch.data.pipeline import TrainPipeline, device_augment_and_degrade
+    from pfnl_tpu_torch.infer.profile_serving import seeded_model
+    from pfnl_tpu_torch.train.losses import LOSS_REGISTRY
+
+    cfg = _flow_cfg("vespcn")
+    loss_fn = LOSS_REGISTRY["vespcn"]
+
+    def grads(model, x, gt, plain):
+        model.zero_grad(set_to_none=True)
+        loss_fn(model(x, plain=plain), gt, x)["loss"].backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    worst_reads = []
+    for seed in GRAD_SEEDS:
+        pipe = TrainPipeline(seqs, cfg.producer, cfg.num_frames, cfg.in_size, cfg.scale,
+                             cfg.batch_size, seed=seed, num_threads=1, prefetch=1, source=mem)
+        try:
+            batch = pipe.get_batch()
+        finally:
+            pipe.close()
+        x, gt = device_augment_and_degrade({k: torch.as_tensor(v).cuda() for k, v in batch.items()},
+                                           torch.Generator(device="cuda").manual_seed(seed),
+                                           cfg.producer, cfg.scale)
+        model = seeded_model("vespcn", torch.float32, SEED, num_frames=cfg.num_frames).train()
+        g_k, g_p = grads(model, x, gt, False), grads(model, x, gt, True)
+        errs = {k: rel(g_k[k], g) for k, g in g_p.items()}
+        worst = max(errs, key=errs.get)
+        worst_reads.append(errs[worst])
+        line = (f"[9c vespcn] batch seed {seed}: worst ||g_k - g_p|| / ||g_p|| over {len(errs)} "
+                f"parameters {errs[worst]:.3e} ({worst}), median "
+                f"{float(np.median(list(errs.values()))):.3e}")
+        if errs[worst] > GRAD_TRAP:
+            m64 = seeded_model("vespcn", torch.float64, SEED, num_frames=cfg.num_frames)
+            g64 = grads(m64.double().train(), x.double(), gt.double(), True)[worst]
+            line += (f"; against float64 plain autograd: kernel path {rel(g_k[worst], g64):.3e}, "
+                     f"float32 plain path {rel(g_p[worst], g64):.3e}")
+        print(line + f" on {card}", flush=True)
+        del model
+        if errs[worst] > GRAD_TOL:
+            fail(f"9c vespcn: batch seed {seed}: {worst} reads {errs[worst]:.3e}")
+    torch.cuda.empty_cache()
+    print(f"[9c vespcn] {len(GRAD_SEEDS)} batches: worst reads {[f'{r:.3e}' for r in worst_reads]} "
+          f"(tolerance {GRAD_TOL:.0e}) on {card}", flush=True)
 
 
 def phase_eval(card):
@@ -3147,6 +3246,107 @@ def phase_rehearsal(card):
     return counts
 
 
+def _init_pins(card):
+    """21a: the seeded draws against INIT_PINS on this machine's torch."""
+    import hashlib
+    import inspect
+
+    from pfnl_tpu_torch.models.blocks import TRUNC_STD, conv_lecun
+    from pfnl_tpu_torch.models.duf import he_trunc_normal
+    from pfnl_tpu_torch.ops.convlstm import _Gates
+
+    source = inspect.getsource(torch.nn.init._no_grad_trunc_normal_)
+    method = ("inverse CDF (erfinv_)" if "erfinv_" in source else
+              "rejection (normal_ redrawn)" if "normal_" in source else "another method")
+    print(f"[21 init] torch {torch.__version__}: nn.init.trunc_normal_ draws by {method}",
+          flush=True)
+    draws = {
+        "conv_lecun": (conv_lecun, lambda sh: math.sqrt(1 / math.prod(sh[:-1])) / TRUNC_STD),
+        "he_trunc_normal": (he_trunc_normal, lambda sh: math.sqrt(2 / math.prod(sh[:-1])) / TRUNC_STD),
+        "gates": (lambda sh, g: _Gates(sh[0], sh[2], sh[3], g).kernel.detach(), lambda sh: 1e-3),
+    }
+    for name, (shape, first, total, digest) in INIT_PINS.items():
+        draw, std = draws[name]
+        w = draw(shape, torch.Generator().manual_seed(0))
+        got = ([float(v) for v in w.flatten()[:8]], math.fsum(w.double().flatten().tolist()),
+               hashlib.sha256(w.contiguous().numpy().tobytes()).hexdigest())
+        s = std(shape)
+        theirs = torch.nn.init.trunc_normal_(torch.empty(shape), std=s, a=-2 * s, b=2 * s,
+                                             generator=torch.Generator().manual_seed(0))
+        print(f"[21 init] {name} {shape}: sha256 {got[2]}, sum {got[1]!r}, first eight "
+              f"{got[0]}; equal to the pins: {got == (first, total, digest)}; equal to this "
+              f"torch's nn.init.trunc_normal_ bitwise: {torch.equal(w, theirs)} on {card}",
+              flush=True)
+        if got != (first, total, digest):
+            fail(f"21 {name}: the seeded draw differs from its pins under torch "
+                 f"{torch.__version__}")
+
+
+def phase_diag_overfit(card):
+    """21: the pinned draws, then the overfit diagnostic's path (see the
+    module docstring); returns the launches of 21b."""
+    from pfnl_tpu_torch import convergence, diag_overfit
+    from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
+    from pfnl_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    _init_pins(card)
+    losses, trainers = [], []
+    real_step, real_fit = Trainer.step, Trainer.fit
+
+    def step(self, *args, **kwargs):
+        out = real_step(self, *args, **kwargs)
+        losses.append(out["loss"])
+        return out
+
+    def fit(self, *args, **kwargs):
+        trainers.append((self, self.model.get_parameter("easyflow.c4.kernel").detach().clone()))
+        return real_fit(self, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train_list, val_list = convergence.make_rich_dataset(os.path.join(tmp, "ds"),
+                                                             num_seqs=CONV_SEQS)
+        sub = os.path.join(tmp, "filelist_train_eval.txt")
+        with open(train_list) as f, open(sub, "wt") as g:
+            g.write("\n".join(f.read().split()[:3]) + "\n")
+        Trainer.step, Trainer.fit = step, fit
+        torch.cuda.synchronize()
+        reset_launches()
+        try:
+            runs = {v: diag_overfit.run_variant(f"vespcn_{v}", "vespcn", train_list, val_list, sub,
+                                                DIAG_STEPS, DIAG_EVAL_EVERY, os.path.join(tmp, "w"),
+                                                zero_flow=v == "zeroflow", device="cuda")
+                    for v in ("baseline", "zeroflow")}
+        finally:
+            Trainer.step, Trainer.fit = real_step, real_fit
+        torch.cuda.synchronize()
+        counts = {k: launches[k] for k in KERNELS}
+    for (v, r), (tr, c4_0) in zip(runs.items(), trainers):
+        c4_moved = not torch.equal(tr.model.get_parameter("easyflow.c4.kernel").detach(), c4_0)
+        c5_zero = not tr.model.get_parameter("easyflow.c5.kernel").any().item()
+        print(f"[21 diag_overfit] vespcn {v}: {DIAG_STEPS} steps in {r['wall']:.1f} s; val "
+              f"{[(st, round(p, 4)) for st, p in r['curves']['val']]}, train-seq "
+              f"{[(st, round(p, 4)) for st, p in r['curves']['train']]}; logged losses "
+              f"{r['loss']}; easyflow.c4 moved {c4_moved}, easyflow.c5 zero {c5_zero} on {card}",
+              flush=True)
+        points = [p for name in ("val", "train") for _, p in r["curves"][name]]
+        if [st for st, _ in r["curves"]["val"]] != list(range(0, DIAG_STEPS, DIAG_EVAL_EVERY)):
+            fail(f"21 {v}: evaluations at {r['curves']['val']}")
+        if not all(math.isfinite(p) for p in points + [x for _, x in r["loss"]]):
+            fail(f"21 {v}: a non-finite evaluation or logged loss")
+        if v == "zeroflow" and not c5_zero:
+            fail("21 zeroflow: easyflow.c5.kernel is not zero at the end")
+        if v == "baseline" and not c4_moved:
+            fail("21 baseline: the flow net did not move in stage 1")
+    if len(losses) != 2 * DIAG_STEPS or not torch.isfinite(torch.stack(losses)).all():
+        fail(f"21: {len(losses)} training losses, want {2 * DIAG_STEPS} finite")
+    print(f"[21 diag_overfit] launches over both variants { {k: v for k, v in counts.items() if v} }"
+          f"; phase 21 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    if not counts["bounded_splat"]:
+        fail("21: K7 was not launched")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke runs only on a CUDA GPU")
@@ -3185,6 +3385,7 @@ def main():
     bench_counts = phase_bench(smi)
     conv_counts = phase_convergence(smi)
     rehearsal_counts = phase_rehearsal(smi)
+    diag_counts = phase_diag_overfit(smi)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "pfnl_tpu"))
@@ -3194,7 +3395,7 @@ def main():
     path_launches = {k: counts[k] + train_counts[k] + y_counts[k] + frvsr_counts[k]
                      + flow_counts[k] + eval_counts[k] + easyflow_counts[k] + export_counts[k]
                      + multi_counts[k] + disk_counts[k] + sharded_counts[k] + family_counts[k]
-                     + bench_counts[k] + conv_counts[k] + rehearsal_counts[k]
+                     + bench_counts[k] + conv_counts[k] + rehearsal_counts[k] + diag_counts[k]
                      for k in TPU_KERNEL}
     path_launches.update(duf_block=duf_counts["duf_block"] + eval_counts["duf_block"]
                          + duf_train_counts["duf_block"] + export_counts["duf_block"]

@@ -202,7 +202,7 @@ def _flip_clip(clips, do_h, do_w, do_t):
 
 
 def device_augment_and_degrade(batch, generator, mode: str, scale: int, augment: bool = True,
-                               part=(0, 1)):
+                               part=(0, 1), legacy_double_flip: bool = False):
     """uint8 batch of tensors on the device -> float LR/GT training tensors.
 
     single: {"gt" [B,T,S,S,3]} -> lr [B,T,s,s,3], gt center [B,1,S,S,3]
@@ -214,20 +214,32 @@ def device_augment_and_degrade(batch, generator, mode: str, scale: int, augment:
             whole global batch are drawn and this part's rows taken, so the
             ranks together flip as one process at the global batch does
     double: {"lr","gt"} -> pass-through; flips happen on the host with
-            alignment-corrected GT crops (sample_flip_crop)
+            alignment-corrected GT crops (sample_flip_crop).  Flipping a
+            pre-rendered LR/GT pair "consistently" here misaligns it by
+            scale-1 GT px: the reference's bug (base_model.py:97-103) is
+            kept behind legacy_double_flip=True for parity studies, the
+            flips drawn as in single mode and the same applied to lr and gt
     frvsr:  {"lr","gt"} -> no augmentation (reference parity)
-
-    The JAX package's `legacy_double_flip` (the reference's misaligning
-    device flip, kept there for parity studies) is not ported.
     """
     if mode == "single":
         gt = batch["gt"].float() / 255.0
         b, t = gt.shape[:2]
         if augment:
-            i, n = part
-            f = torch.rand((b * n, 3), generator=generator, device=gt.device)
-            f = f[i * b:(i + 1) * b] < 0.5
+            f = _draw_flips(generator, b, part, gt.device)
             gt = _flip_clip(gt, f[:, 0], f[:, 1], f[:, 2])
         lr = downsample(gt, scale=scale)
         return lr, gt[:, t // 2:t // 2 + 1]
-    return batch["lr"].float() / 255.0, batch["gt"].float() / 255.0
+    lr, gt = batch["lr"].float() / 255.0, batch["gt"].float() / 255.0
+    if mode == "double" and augment and legacy_double_flip:
+        f = _draw_flips(generator, lr.shape[0], part, lr.device)
+        lr = _flip_clip(lr, f[:, 0], f[:, 1], f[:, 2])
+        gt = _flip_clip(gt, f[:, 0], f[:, 1], f[:, 2])
+    return lr, gt
+
+
+def _draw_flips(generator, b: int, part, device):
+    """[b, 3] bool flips of part (i, n) of a global batch: the whole global
+    batch's drawn uniformly from `generator`, this part's rows taken."""
+    i, n = part
+    f = torch.rand((b * n, 3), generator=generator, device=device)
+    return f[i * b:(i + 1) * b] < 0.5

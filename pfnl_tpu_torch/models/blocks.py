@@ -33,13 +33,31 @@ def conv_glorot(shape, generator=None) -> torch.Tensor:
     return glorot_uniform(shape, kh * kw * cin, kh * kw * cout, generator)
 
 
+# the std of N(0, 1) truncated to [-2, 2], which flax's variance_scaling initialisers divide out
+TRUNC_STD = 0.87962566103423978
+
+
+def truncated_normal(shape, std: float, generator=None) -> torch.Tensor:
+    """N(0, std^2) truncated at two std, float32, by the inverse CDF
+    (jax.random.truncated_normal's algorithm): one value per `torch.rand`
+    value u, x = sqrt(2) erfinv(lo + (hi - lo) u) std with lo, hi =
+    erf(-+sqrt(2)), in float64, clamped to [-2 std, 2 std].  The stream a
+    draw takes is fixed by its shape, so the port's seeded weights do not
+    depend on the torch version (nn.init.trunc_normal_ redraws by rejection
+    in some versions, a stream whose length depends on the values).  u is
+    drawn on the generator's device."""
+    device = generator.device if generator is not None else None
+    u = torch.rand(shape, generator=generator, device=device).double()
+    lo, hi = math.erf(-math.sqrt(2.0)), math.erf(math.sqrt(2.0))
+    x = math.sqrt(2.0) * torch.erfinv(lo + (hi - lo) * u) * std
+    return x.clamp(-2 * std, 2 * std).float()
+
+
 def conv_lecun(shape, generator=None) -> torch.Tensor:
     """flax's lecun_normal (nn.Conv's default) for a conv kernel: a normal
-    of std sqrt(1 / fan_in) / 0.8796 truncated at two std, fan_in = every
-    axis but the last."""
-    std = math.sqrt(1.0 / math.prod(shape[:-1])) / 0.87962566103423978
-    return nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2 * std, b=2 * std,
-                                 generator=generator)
+    of std sqrt(1 / fan_in) / TRUNC_STD truncated at two std, fan_in =
+    every axis but the last."""
+    return truncated_normal(shape, math.sqrt(1.0 / math.prod(shape[:-1])) / TRUNC_STD, generator)
 
 
 class ConvParams(nn.Module):

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pfnl_tpu_torch.models.blocks import TRUNC_STD, truncated_normal
 from pfnl_tpu_torch.ops.cuda.duf_block import dense_backbone
 from pfnl_tpu_torch.ops.cuda.duf_dense import conv3x3x3
 from pfnl_tpu_torch.ops.duf_ref import BlockParams
@@ -54,10 +55,7 @@ _PADS = {"thw": (1, 1, 1), "hw": (0, 1, 1), "none": (0, 0, 0)}
 def he_trunc_normal(shape, generator=None) -> torch.Tensor:
     """flax variance_scaling(2.0, "fan_in", "truncated_normal") for a DHWIO
     kernel: N(0, 2/fan_in) truncated at two standard deviations."""
-    fan_in = math.prod(shape[:-1])
-    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
-    return nn.init.trunc_normal_(torch.empty(shape), std=std, a=-2 * std, b=2 * std,
-                                 generator=generator)
+    return truncated_normal(shape, math.sqrt(2.0 / math.prod(shape[:-1])) / TRUNC_STD, generator)
 
 
 def bn_cancelled_bias(name: str) -> bool:

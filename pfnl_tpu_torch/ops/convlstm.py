@@ -12,21 +12,18 @@ from torch import nn
 
 from pfnl_tpu_torch.ops.conv import conv2d_same
 
-# std of a N(0,1) truncated to [-2, 2], which flax's truncated_normal divides out
-_TRUNC_STD = 0.87962566103423978
-
 
 class _Gates(nn.Module):
     """The fused gate conv's `kernel` (HWIO) and `bias`, flax's names."""
 
     def __init__(self, k: int, cin: int, cout: int, generator=None):
         super().__init__()
-        std = 1e-3 / _TRUNC_STD
-        self.kernel = nn.Parameter(torch.empty(k, k, cin, cout))
+        # here, not at the top: models/ imports this module through DRVSR
+        from pfnl_tpu_torch.models.blocks import truncated_normal
+
+        # flax's truncated_normal(stddev=1e-3) scales by 1e-3 alone (no TRUNC_STD)
+        self.kernel = nn.Parameter(truncated_normal((k, k, cin, cout), 1e-3, generator))
         self.bias = nn.Parameter(torch.zeros(cout))
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
 
 
 class ConvLSTMCell(nn.Module):

@@ -64,3 +64,9 @@ def test_imsave_raises_where_cv2_fails_silently(tmp_path):
         image_io.imsave(str(tmp_path / "missing" / "x.png"), np.zeros((4, 4, 3), np.uint8))
     with pytest.raises(FileNotFoundError):
         image_io.imread(str(tmp_path / "none.png"))
+
+
+@pytest.mark.parametrize("module", ["bench", "convergence", "diag_overfit", "parity_rehearsal"])
+def test_the_entry_point_modules_are_checked(module):
+    """The port's `python -m` entry points are among the sources read."""
+    assert os.path.join(ROOT, "pfnl_tpu_torch", f"{module}.py") in SOURCES

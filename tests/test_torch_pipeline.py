@@ -22,7 +22,7 @@ from pfnl_tpu.utils.image_io import imread
 
 from pfnl_tpu_torch.data.frames import MemoryFrames
 from pfnl_tpu_torch.data.manifest import load_manifest
-from pfnl_tpu_torch.data.pipeline import (TrainPipeline, device_augment_and_degrade,
+from pfnl_tpu_torch.data.pipeline import (TrainPipeline, _flip_clip, device_augment_and_degrade,
                                           sample_flip_crop)
 from tests.util_data import make_dataset
 
@@ -126,3 +126,62 @@ def test_augment_draws_its_flips_from_the_generator():
     assert not torch.equal(run(5), run(6))
     unflipped = device_augment_and_degrade(batch, None, "single", 4, augment=False)[1]
     assert not torch.equal(run(5), unflipped)
+
+
+@pytest.mark.parametrize("combo", range(8))
+def test_flip_clip_matches_jax_bitwise(combo):
+    """Each of the 8 (rows, columns, transpose) combinations, on a batch of
+    4 clips all flipped so: the port's batched _flip_clip equals the JAX
+    package's under vmap bitwise."""
+    clips = np.random.default_rng(combo).random((4, 3, 12, 12, 3)).astype(np.float32)
+    f = np.array([[(combo >> k) & 1 for k in range(3)]] * 4, bool)
+    got = _flip_clip(torch.from_numpy(clips), *(torch.from_numpy(f[:, k]) for k in range(3)))
+    want = jax.vmap(j_flip_clip)(jnp.asarray(clips), *(jnp.asarray(f[:, k]) for k in range(3)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _legacy_pair(seed, **kw):
+    """A double-mode batch of 16 (LR [16,1,8,8,3] the GT decimated at phase
+    0, so LR[i, j] = GT[4i, 4j]) through device_augment_and_degrade with
+    the generator seeded `seed`; returns (lr, gt, the lr and gt given)."""
+    gt8 = _uint8_batch(16, 1, 32, 4)
+    lr8 = np.ascontiguousarray(gt8[:, :, ::4, ::4])
+    batch = {"lr": torch.from_numpy(lr8), "gt": torch.from_numpy(gt8)}
+    lr, gt = device_augment_and_degrade(batch, torch.Generator().manual_seed(seed), "double", 4,
+                                        **kw)
+    return lr, gt, torch.from_numpy(lr8).float() / 255.0, torch.from_numpy(gt8).float() / 255.0
+
+
+def test_legacy_double_flip_gives_lr_and_gt_the_same_flips():
+    """The flag on: the flips drawn [B, 3] from the generator as in single
+    mode, the same applied to lr and to gt (the JAX package's legacy path,
+    its _flip_clip under vmap, bitwise); off (the default): pass-through."""
+    f = torch.rand((16, 3), generator=torch.Generator().manual_seed(5)) < 0.5
+    lr, gt, lr0, gt0 = _legacy_pair(5, legacy_double_flip=True)
+    fj = [jnp.asarray(f[:, k].numpy()) for k in range(3)]
+    np.testing.assert_array_equal(lr.numpy(), np.asarray(jax.vmap(j_flip_clip)(jnp.asarray(lr0), *fj)))
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(jax.vmap(j_flip_clip)(jnp.asarray(gt0), *fj)))
+    assert not torch.equal(lr, lr0)
+    lr_d, gt_d, _, _ = _legacy_pair(5)
+    assert torch.equal(lr_d, lr0) and torch.equal(gt_d, gt0)
+
+
+def test_legacy_double_flip_misaligns_by_scale_minus_one():
+    """The default pair stays aligned (LR[i, j] = GT[4i, 4j]); a legacy pair
+    flipped along an axis is misaligned by scale - 1 = 3 GT pixels along it
+    (LR[i] = GT[4i + 3]; CONVERGENCE.md's statement of the reference's bug):
+    rows flipped, then columns, then the two swapped."""
+    f = (torch.rand((16, 3), generator=torch.Generator().manual_seed(5)) < 0.5).tolist()
+    lr, gt, _, _ = _legacy_pair(5, legacy_double_flip=True)
+    lr_d, gt_d, _, _ = _legacy_pair(5)
+    torch.testing.assert_close(lr_d, gt_d[:, :, ::4, ::4], rtol=0, atol=0)
+    shifted = 0
+    for b, (do_h, do_w, do_t) in enumerate(f):
+        dy, dx = 3 * do_h, 3 * do_w
+        if do_t:
+            dy, dx = dx, dy
+        torch.testing.assert_close(lr[b], gt[b][:, dy::4, dx::4], rtol=0, atol=0)
+        if dy or dx:
+            shifted += 1
+            assert not torch.equal(lr[b], gt[b][:, ::4, ::4])
+    assert shifted >= 8
