@@ -15,7 +15,8 @@ reference it is tested against, and mirrors its layout:
   models/    PFNL, the Y-channel flow families (VESPCN, MCResNet, LTDVSR,
              DRVSR) with their flow nets, FRVSR and DUF, as nn.Modules
   utils/     the flax-params <-> state_dict weight bridge, PNG I/O, the
-             TF1 checkpoint reader and the seven families' importers
+             TF1 checkpoint reader and the seven families' importers, the
+             host spans a torch.profiler trace records (spans.py)
   data/      manifests, frame stores, the training input pipeline, the
              blur{scale}/ renderer and filelists (prepare)
   train/     the losses and the Trainer of every family but DUF (staged

@@ -32,6 +32,7 @@ from pfnl_tpu_torch import native
 from pfnl_tpu_torch.data.frames import PngFrames
 from pfnl_tpu_torch.data.manifest import Sequence
 from pfnl_tpu_torch.ops.degrade import downsample
+from pfnl_tpu_torch.utils.spans import span
 
 
 def _random_crop_coords(rng, h, w, size):
@@ -175,7 +176,9 @@ class TrainPipeline:
                     continue
 
     def get_batch(self) -> Dict[str, np.ndarray]:
-        return self._q.get()
+        """The next batch, waited for under the span "pipeline.get_batch"."""
+        with span("pipeline.get_batch"):
+            return self._q.get()
 
     def close(self):
         """Stop the workers and wait for them (each notices within 0.5 s)."""

@@ -29,6 +29,14 @@ Frames are read through `source` and written through `sink`, frame stores
 of data/frames.py: by default `PngFrames`, PNG files on disk;
 `MemoryFrames` holds them in a dict instead, for frames that never touch
 the disk.
+
+Each clip runs under the host spans of utils/spans.py (recorded only
+while a torch.profiler records): "predictor.clip" around the whole call
+(counts: frames, the HR frames delivered; windows, those computed;
+padded, those computed only to fill the last batch), "predictor.read"
+around everything before the first dispatch, and "predictor.dispatch",
+"predictor.wait" (the host waiting on the device) and "predictor.write"
+(the sink) for each batch.
 """
 
 import os
@@ -41,6 +49,7 @@ from pfnl_tpu_torch.data.frames import MemoryFrames, PngFrames  # noqa: F401  (p
 from pfnl_tpu_torch.ops.color import rgb2ycbcr, ycbcr2rgb
 from pfnl_tpu_torch.ops.degrade import downsample_4d
 from pfnl_tpu_torch.ops.resize import resize_bicubic
+from pfnl_tpu_torch.utils.spans import span
 
 
 def to_uint8_img(x: np.ndarray) -> np.ndarray:
@@ -139,10 +148,20 @@ class Predictor:
             outs.append(out[:out.shape[0] - pad] if pad else out)
         return np.concatenate(outs, 0)
 
-    def _run_windows(self, lrs: np.ndarray, save_path: str, part: int):
-        """Window batches through the model's serving program.  LR
-        frames are edge-padded to a multiple of the model's lr_multiple
-        and the HR output is cropped back.
+    def _edge_pad(self, lrs: np.ndarray) -> np.ndarray:
+        """LR frames [F,h,w,3] edge-padded to a multiple of the model's
+        lr_multiple."""
+        mult = self.model.lr_multiple
+        padh, padw = (-lrs.shape[1]) % mult, (-lrs.shape[2]) % mult
+        if padh or padw:
+            lrs = np.pad(lrs, [[0, 0], [0, padh], [0, padw], [0, 0]], "edge")
+        return lrs
+
+    def _run_windows(self, lrs: np.ndarray, save_path: str, part: int, lr_hw, clip):
+        """Window batches through the model's serving program.  lrs are
+        the LR frames edge-padded (`_edge_pad`), lr_hw their size before
+        it: the HR output is cropped back to lr_hw times the scale.  The
+        counts of the clip's span are set on `clip`.
 
         One batch stays pending, as in the JAX Predictor: batch i is
         dispatched before batch i-1 is written out, so on a CUDA device
@@ -155,22 +174,19 @@ class Predictor:
         memory.  Two pinned buffers of each are used in turn, and a flush
         waits on its batch's CUDA event only."""
         t = self.num_frames
-        mult = self.model.lr_multiple
-        h0, w0 = lrs.shape[1], lrs.shape[2]
-        padh, padw = (-h0) % mult, (-w0) % mult
-        if padh or padw:
-            lrs = np.pad(lrs, [[0, 0], [0, padh], [0, padw], [0, 0]], "edge")
-        out_h, out_w = h0 * self.scale, w0 * self.scale
+        out_h, out_w = lr_hw[0] * self.scale, lr_hw[1] * self.scale
         max_frame = lrs.shape[0]
         part = min(part, max_frame)
         num_once = max_frame // part + (0 if max_frame % part == 0 else 1)
         num_once = min(max(num_once, self.batch_windows), max_frame)
         windows = _clipped_windows(max_frame, t)  # [F, T]
+        n_chunks = (max_frame + num_once - 1) // num_once
+        clip.count(frames=max_frame, windows=n_chunks * num_once,
+                   padded=n_chunks * num_once - max_frame)
 
         print(f"Save at {save_path}")
         print(f"{max_frame} Inputs With Shape {lrs.shape[1:]}")
         all_time = []
-        n_chunks = (max_frame + num_once - 1) // num_once
         cuda = self.device.type == "cuda"
         # CUDA: (LR frames, window indices) and uint8 outputs, two each; batch i uses [i % 2]
         pinned_in, pinned_out = [], []
@@ -205,12 +221,14 @@ class Predictor:
             return host, done
 
         def flush(host, done, n_valid, base):
-            if done is not None:
-                done.synchronize()
-            frames = host.numpy()
-            for j in range(n_valid):  # a copy: the pinned buffer is reused two batches on
-                self.sink.write(os.path.join(save_path, f"{base + j:0>4}.png"),
-                                frames[j, :out_h, :out_w].copy())
+            with span("predictor.wait"):
+                if done is not None:
+                    done.synchronize()
+                frames = host.numpy()
+            with span("predictor.write"):
+                for j in range(n_valid):  # a copy: the pinned buffer is reused two batches on
+                    self.sink.write(os.path.join(save_path, f"{base + j:0>4}.png"),
+                                    frames[j, :out_h, :out_w].copy())
 
         pending = None  # (host uint8, event, valid frames, first frame index)
         for i in range(n_chunks):
@@ -218,19 +236,20 @@ class Predictor:
             pad = num_once - sel.shape[0]
             if pad:  # as the JAX package does: every batch has one shape
                 sel = np.concatenate([sel, sel[-1:].repeat(pad, 0)])
-            st = time.time()
-            batch = (*dispatch(i, sel), num_once - pad, i * num_once)
+            st = time.perf_counter()
+            with span("predictor.dispatch"):
+                batch = (*dispatch(i, sel), num_once - pad, i * num_once)
             if i == 0:
                 flush(*batch)
             else:
                 if pending is not None:
                     flush(*pending)
                 pending = batch
-            all_time.append(time.time() - st)
+            all_time.append(time.perf_counter() - st)
         if pending is not None:
-            st = time.time()
+            st = time.perf_counter()
             flush(*pending)
-            all_time[-1] += time.time() - st
+            all_time[-1] += time.perf_counter() - st
         all_time = np.array(all_time)
         avg = np.mean(all_time[1:]) if len(all_time) > 1 else float(all_time[0])
         print(f"spent {np.sum(all_time)} s in total and {avg} s in average")
@@ -263,19 +282,23 @@ class Predictor:
             return np.array([])
         cuda = self.device.type == "cuda"
         kc = min(chunk_frames, max(f - 1, 1))
-        st = time.time()
-        with torch.inference_mode():
-            sr = self.model.step(torch.from_numpy(lrs[0:1]).to(self.device))
-            first = to_uint8(sr[0])
+        st = time.perf_counter()
         pinned_in, pinned_out = [], []  # chunk i uses [i % 2]
-        if cuda:  # pinning host memory is slow: part of the warm-up
-            for _ in range(2):
-                pinned_in.append(torch.empty((kc + 1,) + lrs.shape[1:], dtype=torch.float32,
-                                             pin_memory=True))
-                pinned_out.append(torch.empty((kc,) + first.shape, dtype=torch.uint8,
-                                              pin_memory=True))
-        self.sink.write(os.path.join(save_path, "0000.png"), first.cpu().numpy())
-        all_time = [time.time() - st]
+        with span("predictor.dispatch"):
+            with torch.inference_mode():
+                sr = self.model.step(torch.from_numpy(lrs[0:1]).to(self.device))
+                first = to_uint8(sr[0])
+            if cuda:  # pinning host memory is slow: part of the warm-up
+                for _ in range(2):
+                    pinned_in.append(torch.empty((kc + 1,) + lrs.shape[1:], dtype=torch.float32,
+                                                 pin_memory=True))
+                    pinned_out.append(torch.empty((kc,) + first.shape, dtype=torch.uint8,
+                                                  pin_memory=True))
+        with span("predictor.wait"):
+            frame0 = first.cpu().numpy()
+        with span("predictor.write"):
+            self.sink.write(os.path.join(save_path, "0000.png"), frame0)
+        all_time = [time.perf_counter() - st]
 
         def dispatch(i, lo, k, sr):
             """Frames [lo, lo+k) through `step` from state sr, enqueued;
@@ -300,46 +323,58 @@ class Predictor:
             return host, done, sr
 
         def flush(host, done, k, base):
-            if done is not None:
-                done.synchronize()
-            frames = host.numpy()
-            for j in range(k):  # a copy: the pinned buffer is reused two chunks on
-                self.sink.write(os.path.join(save_path, f"{base + j:0>4}.png"), frames[j].copy())
+            with span("predictor.wait"):
+                if done is not None:
+                    done.synchronize()
+                frames = host.numpy()
+            with span("predictor.write"):
+                for j in range(k):  # a copy: the pinned buffer is reused two chunks on
+                    self.sink.write(os.path.join(save_path, f"{base + j:0>4}.png"),
+                                    frames[j].copy())
 
         pending = None  # (host uint8, event, frames, first frame index)
         i, lo = 0, 1
         while lo < f:
             k = min(kc, f - lo)
-            st = time.time()
-            host, done, sr = dispatch(i, lo, k, sr)
+            st = time.perf_counter()
+            with span("predictor.dispatch"):
+                host, done, sr = dispatch(i, lo, k, sr)
             if pending is not None:
                 flush(*pending)
             pending = (host, done, k, lo)
-            all_time.append(time.time() - st)
+            all_time.append(time.perf_counter() - st)
             i, lo = i + 1, lo + k
         if pending is not None:
-            st = time.time()
+            st = time.perf_counter()
             flush(*pending)
-            all_time[-1] += time.time() - st
+            all_time[-1] += time.perf_counter() - st
         all_time = np.array(all_time)
         avg = np.sum(all_time[1:]) / (f - 1) if f > 1 else float(all_time[0])
         print(f"spent {np.sum(all_time)} s in total and {avg} s in average")
         return all_time
 
-    def _run(self, lrs: np.ndarray, save_path: str, part: int):
-        if self.model.recurrent:
-            return self._run_recurrent(lrs, save_path)
-        return self._run_windows(lrs, save_path, part)
+    def _run(self, read, save_path: str, part: int):
+        """One clip, its LR frames [F,h,w,3] float from read(), under the
+        clip's spans."""
+        with span("predictor.clip") as clip:
+            with span("predictor.read"):
+                lrs = read()
+                padded = lrs if self.model.recurrent else self._edge_pad(lrs)
+            if self.model.recurrent:
+                clip.count(frames=lrs.shape[0], windows=lrs.shape[0], padded=0)
+                return self._run_recurrent(lrs, save_path)
+            return self._run_windows(padded, save_path, part, lrs.shape[1:3], clip)
 
     def test_video_truth(self, path: str, name: str = "result", part: int = 1000):
         """Degrade truth/*.png on the device, then super-resolve."""
-        lrs = self._degrade_video(self._read_video(os.path.join(path, "truth")))
-        return self._run(lrs, os.path.join(path, name), part)
+        truth = os.path.join(path, "truth")
+        return self._run(lambda: self._degrade_video(self._read_video(truth)),
+                         os.path.join(path, name), part)
 
     def test_video_lr(self, path: str, name: str = "result", part: int = 1000):
         """Super-resolve pre-rendered blur{scale}/*.png."""
-        lrs = self._read_video(os.path.join(path, f"blur{self.scale}"))
-        return self._run(lrs, os.path.join(path, name), part)
+        blur = os.path.join(path, f"blur{self.scale}")
+        return self._run(lambda: self._read_video(blur), os.path.join(path, name), part)
 
     def testvideo(self, path: str, name: str = "result", part: int = 1000):
         """The VESPCN family's name for test_video_lr (model/vespcn.py:298)."""

@@ -64,6 +64,7 @@ from pfnl_tpu_torch.data.pipeline import device_augment_and_degrade
 from pfnl_tpu_torch.models import MODEL_REGISTRY
 from pfnl_tpu_torch.parallel import multihost
 from pfnl_tpu_torch.train.losses import LOSS_REGISTRY
+from pfnl_tpu_torch.utils.spans import span
 
 KEEP_CHECKPOINTS = 5
 # top-level modules whose parameters are the "flow" stage's (JAX `_label_params`)
@@ -225,18 +226,22 @@ class Trainer:
 
     def step(self, batch, generator: torch.Generator):
         """One training step on a uint8 host batch; returns the losses as
-        device tensors (reading them waits for the device)."""
-        batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
-        lr_in, gt = device_augment_and_degrade(batch, generator, self.cfg.producer,
-                                               self.cfg.scale, part=self.data_part)
-        self.model.train()
-        out = self.net(lr_in, plain=self.plain)
-        losses = self.loss_fn(out if isinstance(out, dict) else {"sr": out}, gt, lr_in)
-        # every gradient is cleared: the SR stage's Adam leaves the flow's unread
-        self.model.zero_grad(set_to_none=True)
-        losses["loss_sr" if self.staged and self.stage == 0 else "loss"].backward()
-        self.apply_gradients()
-        return {k: v.detach() for k, v in losses.items()}
+        device tensors (reading them waits for the device).  Under the
+        spans (utils/spans.py) "train.step", counting the global `step`,
+        and "train.upload" around the batch's upload."""
+        with span("train.step", step=self.global_step):
+            with span("train.upload"):
+                batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+            lr_in, gt = device_augment_and_degrade(batch, generator, self.cfg.producer,
+                                                   self.cfg.scale, part=self.data_part)
+            self.model.train()
+            out = self.net(lr_in, plain=self.plain)
+            losses = self.loss_fn(out if isinstance(out, dict) else {"sr": out}, gt, lr_in)
+            # every gradient is cleared: the SR stage's Adam leaves the flow's unread
+            self.model.zero_grad(set_to_none=True)
+            losses["loss_sr" if self.staged and self.stage == 0 else "loss"].backward()
+            self.apply_gradients()
+            return {k: v.detach() for k, v in losses.items()}
 
     def apply_gradients(self):
         """The stage's Adam on the parameters' .grad (DRVSR's LSTM gradients

@@ -1,2 +1,2 @@
 """Utilities of the port: the flax <-> state_dict weight bridge, the TF1 and
-Caffe imports, PNG and optical-flow helpers."""
+Caffe imports, PNG and optical-flow helpers, the host spans (spans.py)."""
