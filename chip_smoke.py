@@ -12,8 +12,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      mma) instructions in each kernel entry's SASS (cuobjdump -sass),
      failing if a bf16 entry of kernel 1, 2, 3, 4, 9 or 10 has none (all
      six run on the tensor cores in bf16), if a float32 entry of kernel
-     5 or 6 (3xTF32 on the tensor cores: HMMA.1688.F32.TF32) has none or
-     spills, or if an entry of kernel 7 or 8 (the splat tiles) spills;
+     2, 3, 5 or 6 (3xTF32 on the tensor cores: HMMA.1688.F32.TF32) has
+     none or spills, or if an entry of kernel 7 or 8 (the splat tiles)
+     spills;
   3. each kernel against its plain PyTorch version at the main path's
      shapes (PFNL 7 frames, LR 180x320, batch 2), in float32 (TF32 off on
      the plain side) and in bfloat16, with the tolerance stated, and the
@@ -41,7 +42,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      `serve` on one batch) and peak memory;
   5. training at the paper config (batch 16, LR crop 32 / GT 128, 7
      frames, float32):
-     a. kernels 5 and 6 (the PFRB backward) against their plain versions
+     a. kernels 2 and 3 in float32 (the PFRB forward, 3xTF32) against
+        their plain versions at the training shape [16,7,32,32,64] and at
+        [2,7,180,320,64], bitwise equal over two launches, with their times
+        beside the plain versions' and the 3xTF32 bound beside the float32
+        CUDA-core one; then
+        kernels 5 and 6 (the PFRB backward) against their plain versions
         at the training shape [16,7,32,32,64] and at [2,7,180,320,64], in
         float32 and bfloat16, with their times and TFLOP/s beside the plain
         versions' and their weight gradients bitwise equal over two
@@ -465,8 +471,9 @@ INIT_PINS = {
 }
 # phase 2: the kernel entries that must run on the tensor cores (a substring of the
 # mangled entry name: the bf16 entries of kernels 1, 2, 3, 4, 9 and 10, every instantiation)
-TF32_ENTRIES = ("pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
-                "wgrad_tf32_mma_kernel")  # the float32 entries of kernels 5 and 6: 3xTF32
+TF32_ENTRIES = ("pfrb_a_tf32_mma_kernel", "pfrb_b_tf32_mma_kernel",
+                "pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
+                "wgrad_tf32_mma_kernel")  # the float32 entries of kernels 2, 3, 5 and 6: 3xTF32
 TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_mma_kernel", "pfrb_a_bf16_mma_kernel",
                        "pfrb_b_bf16_mma_kernel", "pfnl_tail_bf16_mma_kernel",
                        "duf_block_pointwise_bf16_mma_kernel", "duf_block_conv_bf16_mma_kernel",
@@ -919,6 +926,57 @@ def bwd_library(name, args):
         d_base, dw2b, _ = _conv_backward(dz2.sum(1), base, kb)
         return d_i1.reshape(n, t, h, w, c), d_base, dw2f, dw2b, db2
     return run
+
+
+def phase_fwd_f32_kernels(card):
+    """5a (forward): kernels 2 and 3 in float32, 3xTF32 on the tensor cores,
+    against their plain versions at BWD_SHAPES, bitwise equal over two
+    launches, with their times beside the plain versions' and, as for
+    kernels 5 and 6, the 3xTF32 bound beside the float32 CUDA-core one."""
+    from pfnl_tpu_torch.ops.cuda.pfrb import pfrb_a, pfrb_b
+    from pfnl_tpu_torch.ops.pfrb_ref import pfrb_a_ref, pfrb_b_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for shape in BWD_SHAPES:
+        n, t, h, w = shape
+        feat = _rand((n, t, h, w, C), gen, 0.5)
+        w1 = _glorot((3, 3, C, C), 9 * C, 9 * C, gen)
+        wfuse = _glorot((t, C, C), t * C, C, gen)
+        w2f, w2b = (_glorot((3, 3, C, C), 18 * C, 9 * C, gen) for _ in range(2))
+        b1, bfuse, b2 = (_rand((C,), gen, 0.1) for _ in range(3))
+        i1, base = pfrb_a_ref(feat, w1, b1, wfuse, bfuse)
+        hw = n * h * w
+        cases = [("pfrb_a", hw * t * C * C * 2.0 * 10, (feat, w1, b1, wfuse, bfuse), pfrb_a,
+                  pfrb_a_ref),
+                 ("pfrb_b", hw * (t + 1) * C * C * 2.0 * 9, (feat, i1, base, w2f, w2b, b2), pfrb_b,
+                  pfrb_b_ref)]
+        for name, flop, args, kernel, plain in cases:
+            got, again, ref = kernel(*args), kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            abs_err, rel_err = _max_errs(got, ref)
+            same = _bitwise_equal(got, again)
+            ok = rel_err <= TOL["float32"]
+            print(f"[5a kernel] {name} float32 {list(shape)}: max_abs_err {abs_err:.3e}, "
+                  f"max_rel_err {rel_err:.3e} (tolerance {TOL['float32']:.0e} of max|plain|) "
+                  f"{'ok' if ok else 'DISAGREES'}; bitwise equal over two launches: {same}",
+                  flush=True)
+            if not ok:
+                fail(f"{name} float32 {shape} disagrees with its plain version")
+            if not same:
+                fail(f"{name} float32 {shape}: two launches differ")
+            p1 = cuda_time_ms(lambda: plain(*args))
+            k1 = cuda_time_ms(lambda: kernel(*args))
+            k2 = cuda_time_ms(lambda: kernel(*args))
+            p2 = cuda_time_ms(lambda: plain(*args))
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            nbyte = nbytes(args, got)
+            bound_ms, bound_by = bound(3 * flop, nbyte, "tf32")
+            cores_ms = bound(flop, nbyte, "float32")[0]
+            print(f"[5a time] {name} float32 {list(shape)}: kernel {ms:.3f} ms "
+                  f"({flop / ms / 1e9:.2f} TFLOP/s; {3 * flop / ms / 1e9:.2f} TFLOP/s of TF32 "
+                  f"issue), plain {plain_ms:.3f} ms ({flop / plain_ms / 1e9:.2f} TFLOP/s); bound "
+                  f"{bound_ms:.3f} ms 3xTF32 ({bound_by}), {cores_ms:.3f} ms float32 CUDA cores; "
+                  f"kernel {ms / bound_ms:.1f}x the bound on {card}", flush=True)
 
 
 def phase_bwd_kernels(card):
@@ -3361,6 +3419,7 @@ def main():
     results = phase_kernels(name)
     results.update(phase_splat_kernels(name))
     counts, fps_4 = phase_end_to_end(name)
+    phase_fwd_f32_kernels(name)
     results.update(phase_bwd_kernels(name))
     phase_train_gradients(name)
     train = phase_train_fit(name)

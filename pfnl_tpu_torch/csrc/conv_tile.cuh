@@ -1,6 +1,7 @@
 // Direct 3x3 SAME convolution of one TH x TW pixel tile, channels-last, on
-// CUDA cores with float accumulation: the building block of the float32
-// entries of kernels 2-4 (pfrb.cu, pfnl_tail.cu).
+// CUDA cores with float accumulation: the building block of kernel 4's
+// float32 entry (pfnl_tail.cu) and of kernels 5-6's bf16 data gradients
+// (pfrb_bwd.cu).
 //
 // The block stages the tile's input with its 1-pixel halo in shared memory
 // (zero outside the image, which is the SAME padding) and one 3x3 tap of

@@ -3,8 +3,9 @@
 // in duf_block.cu, and the conv tile of kernels 4, 9 and 10 in
 // duf_conv_mma.cuh):
 // mma.sync m16n8k16 bf16 with float32 accumulation, ldmatrix, cp.async;
-// and by the float32 entries of kernels 5-6 (pfrb_bwd.cu): mma.sync
-// m16n8k8 TF32 run three times a k-step on a hi + lo split (3xTF32).
+// and by the float32 entries of kernels 2-3 and 5-6 (tf32_conv.cuh):
+// mma.sync m16n8k8 TF32 run three times a k-step on a hi + lo split
+// (3xTF32).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 regs of two bf16:  a0 (g, 2t..2t+1), a1 (g+8, 2t..),
@@ -150,6 +151,12 @@ __device__ __forceinline__ void stage_f32x4(float* dst, const float* src, bool i
 #pragma unroll
     for (int k = 0; k < 4; ++k) dst[k] = inside ? src[k] : 0.f;
   }
+}
+
+// cp.async of one float from global to shared (both 4-byte aligned, as
+// every float is): a copy that transposes while it stages.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
 // Every pointer 16-byte aligned: a kernel may stage them all by cp.async.

@@ -20,7 +20,10 @@
 // at 989 TFLOP/s bf16), against 221 MB of bf16 activations moved (0.066 ms
 // at 3.35 TB/s): operations, barely.  Kernel B does 8 taps x 9 products
 // over T + 1 images, 67.9 GFLOP (0.069 ms) against 325 MB (0.097 ms):
-// bytes and operations nearly even.
+// bytes and operations nearly even.  float32 at the training shape
+// ([16,7,32,32,64]): A 9.40 and B 9.66 GFLOP, three TF32 products a float32
+// one at 495 TFLOP/s, 0.057 and 0.059 ms, against 63 and 92 MB (0.019 and
+// 0.028 ms): operations.
 //
 // bf16 (the serving path): an implicit GEMM per conv on the tensor cores,
 // mma.sync m16n8k16 with float32 accumulation (mma.cuh).
@@ -64,149 +67,256 @@
 // fusing B of block k with A of block k+1 (i1 and base never leave the
 // chip), and a CUDA graph over the chain.
 //
-// float32 (training and the float32 model): the first design, float FMAs
-// on CUDA cores through conv_tile.cuh.  One block per (sample, 8x16 pixel
-// tile), 256 threads; kernel A pushes the rounded i1 tile through shared
-// memory to feed the fusion product; kernel B computes the base conv once
-// into registers.  One TF32 product a float32 product cannot hold the 1e-4
-// float32 check against the plain version (about 3e-4); the 3xTF32 split of
-// kernels 5-6 (pfrb_bwd.cu) holds it at about 1e-6 and is the candidate.
-#include "conv_tile.cuh"
-#include "mma.cuh"
+// float32 (training and the float32 model; the `tf32` namespace): 3xTF32
+// on the tensor cores, on the implicit-GEMM tile of kernels 5-6's data
+// gradients (tf32_conv.cuh).
+//   - Arithmetic: mma.sync m16n8k8 TF32 with float32 accumulation.  Each
+//     operand is split in registers after its fragment load into hi + lo,
+//     both TF32 by cvt.rna's rule (mma.cuh), and a k-step runs lo*hi,
+//     hi*lo, then hi*hi.  Each tap of a conv, and each frame's fusion
+//     product, sums into a fresh accumulator that is then added to the
+//     running total in float32 (the mma truncate, a bias that grows with a
+//     chain).  One TF32 product instead lands about 3e-4 of max|plain|
+//     off, over the 1e-4 check, and 2e-6 to 4e-5 off on pfnl.train's first
+//     loss (limit 5e-7): a lower precision, not a faster kernel.
+//   - The tile: M = the 8 x 16 pixels of the block's tile, N = 64 output
+//     channels, K = 9 taps x 64 channels; 8 warps, a warp two tile rows x
+//     32 channels.  The conv's HWIO weights are transposed while staged (a
+//     4-byte cp.async an element) to [tap][out][in], rows padded to 68
+//     floats, and stay resident for the whole frame loop; the (8+2) x
+//     (16+2) window is staged by cp.async (src-size 0 outside the image),
+//     single-buffered, pixels 68 floats apart: fragment loads are free of
+//     bank conflicts.  At the training shape ([16,7,32,32,64]) the grid is
+//     128 blocks on 132 SMs, one wave; at 720p about 14 waves.
+//   - Kernel A, per frame: i1_t = lrelu(conv(feat_t, W1) + b1) is stored,
+//     then written over the window as a [128 pixel][68] tile, from which
+//     base_acc += i1_t @ Wfuse_t runs as a one-tap GEMM (Wfuse_t staged
+//     transposed with the frame's window).  base_acc stays in float32
+//     across the frames; lrelu(+ bfuse) once at the end.  Shared memory:
+//     156,672 B of W1 + 48,960 B of window + 17,408 B of Wfuse_t = 223,040
+//     B of the 232,448 an SM gives a block.
+//   - Kernel B: conv(base, W2b) once into float32 registers; then W2f takes
+//     W2b's shared memory, and per frame conv(i1_t, W2f) + that + b2,
+//     lrelu, + feat_t, one store.  205,632 B of shared memory.
+//   - 174-202 registers a thread, no spills (kernel B 174 / 187, kernel A
+//     187 / 202, element-wise / cp.async staging; ptxas on the card).
+//   - What still holds them back (no ncu on the card, so inferred): they
+//     reach about 30% of the 3xTF32 rate (K5/K6's tile does about as
+//     well); a k-step of a warp needs 16 ld.shared and 16 splits beside its
+//     24 mma, with two warps a sub-partition to hide their latency; every
+//     frame waits on its window (a second one does not fit beside the
+//     weights); kernel A's i1 tile costs two more barriers a frame, and
+//     kernel B stages W2f only after the base conv.  wgmma with operands
+//     split once into shared memory is the next design.
+//   - No atomics, every sum in a fixed order: bitwise reproducible.
+#include "common.cuh"
+#include "tf32_conv.cuh"
 
 namespace {
 
-using pfnl::from_f32;
 using pfnl::lrelu;
-using pfnl::round_to;
-using pfnl::to_f32;
 
-constexpr int C = 64, TH = 8, TW = 16, PPT = 4, CPT = 8;
-using Tile = pfnl::ConvTile<C, C, TH, TW, PPT, CPT>;
+constexpr int C = 64;
 
-template <typename T>
-__global__ void __launch_bounds__(Tile::THREADS)
-pfrb_a_kernel(const T* __restrict__ feat, const float* __restrict__ w1,
-              const float* __restrict__ b1, const float* __restrict__ wfuse,
-              const float* __restrict__ bfuse, T* __restrict__ i1, T* __restrict__ base,
-              int nt, int h, int w) {
-  extern __shared__ float smem[];
-  float* s_in = smem;
-  float* s_w = smem + Tile::IN_FLOATS;
-  const int tiles_x = (w + TW - 1) / TW;
-  const int y0 = (blockIdx.x / tiles_x) * TH, x0 = (blockIdx.x % tiles_x) * TW;
+// The float32 kernels on the tensor cores, 3xTF32 (see the head of this file).
+namespace tf32 {
+
+using namespace pfnl::tf32;  // the conv tile (tf32_conv.cuh)
+
+constexpr int WFUSE = C * PS;  // floats of one frame's fusion weights, [out][in]
+constexpr size_t SMEM_A = (size_t)(WCONV + WIN + WFUSE) * sizeof(float);
+constexpr size_t SMEM_B = (size_t)(WCONV + WIN) * sizeof(float);
+static_assert(SMEM_A <= 232448 && TH * TW * PS <= WIN, "an SM's shared memory; the i1 tile");
+
+// `taps` HWIO slices [64 in][64 out] of wt into s as [taps][64 out][PS],
+// transposed while staged, by 4-byte cp.async.  A warp's 32 lanes copy 4
+// input x 8 output channels: four 32-byte runs of device memory, and
+// shared-memory banks 4 (out) + in, all distinct.
+__device__ __forceinline__ void stage_weights_t(float* s, const float* __restrict__ wt, int taps) {
+  for (int i = threadIdx.x; i < taps * C * C; i += THREADS) {
+    const int tap = i / (C * C), q = (i % (C * C)) / 32, l = i % 32;
+    const int ci = (q % (C / 4)) * 4 + l % 4, co = (q / (C / 4)) * 8 + l / 4;
+    pfnl::cp_async_f32(s + (tap * C + co) * PS + ci, wt + ((size_t)tap * C + ci) * C + co);
+  }
+}
+
+// f(at, v0, v1) for each pair of channels of acc at the warp's pixels
+// inside the h x w image of the tile at (y0, x0): at = the offset of the
+// pair's first channel in an [h, w, 64] image.
+template <typename F>
+__device__ __forceinline__ void each_pair(const DAcc& acc, int y0, int x0, int h, int w, int warp,
+                                          int lane, F f) {
+  const int c0 = 32 * (warp % 2) + 2 * (lane % 4);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int gy = y0 + 2 * (warp / 2) + mt;
+    if (gy >= h) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gx = x0 + lane / 4 + 8 * half;
+      if (gx >= w) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f(((size_t)gy * w + gx) * C + c0 + 8 * j, acc[mt][j][2 * half], acc[mt][j][2 * half + 1]);
+    }
+  }
+}
+
+// acc = lrelu(acc + bias), channel by channel.
+__device__ __forceinline__ void bias_lrelu(DAcc& acc, const float* __restrict__ bias, int warp,
+                                           int lane) {
+  const int c0 = 32 * (warp % 2) + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float bc[2] = {bias[c0 + 8 * j], bias[c0 + 8 * j + 1]};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = lrelu(acc[mt][j][e] + bc[e & 1]);
+  }
+}
+
+template <bool ASYNC>
+__global__ void __launch_bounds__(THREADS, 1)
+pfrb_a_tf32_mma_kernel(const float* __restrict__ feat, const float* __restrict__ w1,
+                       const float* __restrict__ b1, const float* __restrict__ wfuse,
+                       const float* __restrict__ bfuse, float* __restrict__ i1,
+                       float* __restrict__ base, int nt, int h, int w) {
+  extern __shared__ __align__(16) float smem16[];
+  float* s_w = smem16;          // W1 [9][64 out][PS]
+  float* s_win = s_w + WCONV;   // frame t's window, then its i1 tile [TH * TW][PS]
+  float* s_wf = s_win + WIN;    // Wfuse_t [64 out][PS]
+  int y0, x0;
+  tile_origin(w, y0, x0);
   const int b = blockIdx.y;
-  const int co0 = Tile::cg() * CPT, py = Tile::py(), px = Tile::px();
-  const int gy = y0 + py;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t plane = (size_t)h * w * C;
 
-  float bacc[PPT][CPT] = {};
+  stage_weights_t(s_w, w1, 9);
+  DAcc bacc;
+  zero(bacc);
   for (int t = 0; t < nt; ++t) {
     const size_t img = ((size_t)b * nt + t) * plane;
-    __syncthreads();  // the previous frame's fusion reads of s_in are done
-    Tile::load_input(s_in, feat + img, h, w, C, y0, x0);
-    float acc[PPT][CPT] = {};
-    Tile::conv3x3(s_in, s_w, w1, (size_t)C * C, C, acc);
-
-    float v[PPT][CPT];
-#pragma unroll
-    for (int p = 0; p < PPT; ++p) {
-      const int gx = x0 + px + p;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) v[p][j] = round_to<T>(lrelu(acc[p][j] + b1[co0 + j]));
-      if (gy < h && gx < w) {
-        T* dst = i1 + img + ((size_t)gy * w + gx) * C + co0;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) dst[j] = from_f32<T>(v[p][j]);
-      }
-    }
-    __syncthreads();  // every thread is done with this frame's conv
-    // the i1 tile, [TH*TW pixels][C], over the input window's storage
-#pragma unroll
-    for (int p = 0; p < PPT; ++p)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s_in[(py * TW + px + p) * Tile::CS + co0 + j] = v[p][j];
-    Tile::load_weights(s_w, wfuse + (size_t)t * C * C, C);
+    stage_window<ASYNC>(s_win, feat + img, h, w, y0, x0, feat);
+    stage_weights_t(s_wf, wfuse + (size_t)t * C * C, 1);
+    pfnl::cp_async_commit();
+    pfnl::cp_async_wait<0>();
     __syncthreads();
-    Tile::accumulate(s_in, TW, 0, 0, s_w, bacc);
+    DAcc acc;
+    zero(acc);
+    conv3x3(s_win, s_w, warp, lane, acc);
+    bias_lrelu(acc, b1, warp, lane);
+    float* i1_t = i1 + img;
+    each_pair(acc, y0, x0, h, w, warp, lane, [&](size_t at, float v0, float v1) {
+      *reinterpret_cast<float2*>(i1_t + at) = make_float2(v0, v1);
+    });
+    __syncthreads();  // every warp is done with the window
+    // the i1 tile over the window, pixel (row, column) at (row * TW + column) * PS: all of
+    // its pixels, those outside the image too (a GEMM row feeds only its own output row)
+    const int c0 = 32 * (warp % 2) + 2 * (lane % 4);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float2*>(s_win + ((2 * (warp / 2) + mt) * TW + lane / 4 + 8 * half) * PS +
+                                     c0 + 8 * j) =
+              make_float2(acc[mt][j][2 * half], acc[mt][j][2 * half + 1]);
+    __syncthreads();
+    mma_taps<1, TW>(s_win, s_wf, warp, lane, bacc);  // base_acc += i1_t @ Wfuse_t
+    __syncthreads();  // every warp is done with the tile and Wfuse_t before they are refilled
   }
 
-#pragma unroll
-  for (int p = 0; p < PPT; ++p) {
-    const int gx = x0 + px + p;
-    if (gy < h && gx < w) {
-      T* dst = base + (size_t)b * plane + ((size_t)gy * w + gx) * C + co0;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) dst[j] = from_f32<T>(lrelu(bacc[p][j] + bfuse[co0 + j]));
-    }
-  }
+  bias_lrelu(bacc, bfuse, warp, lane);
+  float* base_b = base + (size_t)b * plane;
+  each_pair(bacc, y0, x0, h, w, warp, lane, [&](size_t at, float v0, float v1) {
+    *reinterpret_cast<float2*>(base_b + at) = make_float2(v0, v1);
+  });
 }
 
-template <typename T>
-__global__ void __launch_bounds__(Tile::THREADS)
-pfrb_b_kernel(const T* __restrict__ feat, const T* __restrict__ i1, const T* __restrict__ base,
-              const float* __restrict__ w2f, const float* __restrict__ w2b,
-              const float* __restrict__ b2, T* __restrict__ out, int nt, int h, int w) {
-  extern __shared__ float smem[];
-  float* s_in = smem;
-  float* s_w = smem + Tile::IN_FLOATS;
-  const int tiles_x = (w + TW - 1) / TW;
-  const int y0 = (blockIdx.x / tiles_x) * TH, x0 = (blockIdx.x % tiles_x) * TW;
+template <bool ASYNC>
+__global__ void __launch_bounds__(THREADS, 1)
+pfrb_b_tf32_mma_kernel(const float* __restrict__ feat, const float* __restrict__ i1,
+                       const float* __restrict__ base, const float* __restrict__ w2f,
+                       const float* __restrict__ w2b, const float* __restrict__ b2,
+                       float* __restrict__ out, int nt, int h, int w) {
+  extern __shared__ __align__(16) float smem16[];
+  float* s_w = smem16;          // W2b, then W2f [9][64 out][PS]
+  float* s_win = s_w + WCONV;
+  int y0, x0;
+  tile_origin(w, y0, x0);
   const int b = blockIdx.y;
-  const int co0 = Tile::cg() * CPT, py = Tile::py(), px = Tile::px();
-  const int gy = y0 + py;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t plane = (size_t)h * w * C;
 
-  float bacc[PPT][CPT] = {};
-  Tile::load_input(s_in, base + (size_t)b * plane, h, w, C, y0, x0);
-  Tile::conv3x3(s_in, s_w, w2b, (size_t)C * C, C, bacc);
+  stage_weights_t(s_w, w2b, 9);
+  stage_window<ASYNC>(s_win, base + (size_t)b * plane, h, w, y0, x0, base);
+  pfnl::cp_async_commit();
+  pfnl::cp_async_wait<0>();
+  __syncthreads();
+  DAcc bacc;
+  zero(bacc);
+  conv3x3(s_win, s_w, warp, lane, bacc);
+  __syncthreads();  // W2b and base's window are read
+  stage_weights_t(s_w, w2f, 9);  // lands with frame 0's window
 
   for (int t = 0; t < nt; ++t) {
     const size_t img = ((size_t)b * nt + t) * plane;
-    __syncthreads();  // the previous conv's reads of s_in are done
-    Tile::load_input(s_in, i1 + img, h, w, C, y0, x0);
-    float acc[PPT][CPT] = {};
-    Tile::conv3x3(s_in, s_w, w2f, (size_t)C * C, C, acc);
+    stage_window<ASYNC>(s_win, i1 + img, h, w, y0, x0, i1);
+    pfnl::cp_async_commit();
+    pfnl::cp_async_wait<0>();
+    __syncthreads();
+    DAcc acc;
+    zero(acc);
+    conv3x3(s_win, s_w, warp, lane, acc);
 #pragma unroll
-    for (int p = 0; p < PPT; ++p) {
-      const int gx = x0 + px + p;
-      if (gy < h && gx < w) {
-        const size_t at = img + ((size_t)gy * w + gx) * C + co0;
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float i2 = lrelu(acc[p][j] + bacc[p][j] + b2[co0 + j]);
-          out[at + j] = from_f32<T>(to_f32(feat[at + j]) + i2);
-        }
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] += bacc[mt][j][e];
+    bias_lrelu(acc, b2, warp, lane);
+    const float* feat_t = feat + img;
+    float* out_t = out + img;
+    each_pair(acc, y0, x0, h, w, warp, lane, [&](size_t at, float v0, float v1) {
+      float f0, f1;
+      if constexpr (ASYNC) {  // 16-byte aligned: one 8-byte load
+        const float2 f = *reinterpret_cast<const float2*>(feat_t + at);
+        f0 = f.x;
+        f1 = f.y;
+      } else {
+        f0 = feat_t[at];
+        f1 = feat_t[at + 1];
       }
-    }
+      *reinterpret_cast<float2*>(out_t + at) = make_float2(f0 + v0, f1 + v1);
+    });
+    __syncthreads();  // every warp is done with the window before it is refilled
   }
 }
 
-template <typename T>
-int launch_a(const void* feat, const float* w1, const float* b1, const float* wfuse,
-             const float* bfuse, void* i1, void* base, int n, int t, int h, int w,
+int launch_a(const float* feat, const float* w1, const float* b1, const float* wfuse,
+             const float* bfuse, float* i1, float* base, int n, int t, int h, int w,
              cudaStream_t stream) {
-  auto k = pfrb_a_kernel<T>;
-  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::SMEM_BYTES);
+  auto k = pfnl::aligned16({feat}) ? &pfrb_a_tf32_mma_kernel<true> : &pfrb_a_tf32_mma_kernel<false>;
+  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_A);
   const dim3 grid(((h + TH - 1) / TH) * ((w + TW - 1) / TW), n);
-  k<<<grid, Tile::THREADS, Tile::SMEM_BYTES, stream>>>(
-      static_cast<const T*>(feat), w1, b1, wfuse, bfuse, static_cast<T*>(i1),
-      static_cast<T*>(base), t, h, w);
+  k<<<grid, THREADS, SMEM_A, stream>>>(feat, w1, b1, wfuse, bfuse, i1, base, t, h, w);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_b(const void* feat, const void* i1, const void* base, const float* w2f,
-             const float* w2b, const float* b2, void* out, int n, int t, int h, int w,
+int launch_b(const float* feat, const float* i1, const float* base, const float* w2f,
+             const float* w2b, const float* b2, float* out, int n, int t, int h, int w,
              cudaStream_t stream) {
-  auto k = pfrb_b_kernel<T>;
-  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::SMEM_BYTES);
+  auto k = pfnl::aligned16({feat, i1, base}) ? &pfrb_b_tf32_mma_kernel<true>
+                                             : &pfrb_b_tf32_mma_kernel<false>;
+  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_B);
   const dim3 grid(((h + TH - 1) / TH) * ((w + TW - 1) / TW), n);
-  k<<<grid, Tile::THREADS, Tile::SMEM_BYTES, stream>>>(
-      static_cast<const T*>(feat), static_cast<const T*>(i1), static_cast<const T*>(base), w2f,
-      w2b, b2, static_cast<T*>(out), t, h, w);
+  k<<<grid, THREADS, SMEM_B, stream>>>(feat, i1, base, w2f, w2b, b2, out, t, h, w);
   return (int)cudaGetLastError();
 }
+
+}  // namespace tf32
 
 // The bf16 tensor-core kernels (see the head of this file).
 namespace tc {
@@ -530,8 +640,9 @@ extern "C" {
 int pfnl_pfrb_a_f32(const void* feat, const float* w1, const float* b1, const float* wfuse,
                     const float* bfuse, void* i1, void* base, int n, int t, int h, int w,
                     void* stream) {
-  return launch_a<float>(feat, w1, b1, wfuse, bfuse, i1, base, n, t, h, w,
-                         static_cast<cudaStream_t>(stream));
+  return tf32::launch_a(static_cast<const float*>(feat), w1, b1, wfuse, bfuse,
+                        static_cast<float*>(i1), static_cast<float*>(base), n, t, h, w,
+                        static_cast<cudaStream_t>(stream));
 }
 
 int pfnl_pfrb_a_bf16(const void* feat, const void* w1, const float* b1, const void* wfuse,
@@ -544,8 +655,9 @@ int pfnl_pfrb_a_bf16(const void* feat, const void* w1, const float* b1, const vo
 int pfnl_pfrb_b_f32(const void* feat, const void* i1, const void* base, const float* w2f,
                     const float* w2b, const float* b2, void* out, int n, int t, int h, int w,
                     void* stream) {
-  return launch_b<float>(feat, i1, base, w2f, w2b, b2, out, n, t, h, w,
-                         static_cast<cudaStream_t>(stream));
+  return tf32::launch_b(static_cast<const float*>(feat), static_cast<const float*>(i1),
+                        static_cast<const float*>(base), w2f, w2b, b2, static_cast<float*>(out), n,
+                        t, h, w, static_cast<cudaStream_t>(stream));
 }
 
 int pfnl_pfrb_b_bf16(const void* feat, const void* i1, const void* base, const void* w2f,

@@ -55,8 +55,10 @@
 //     max|plain| (chip_smoke.py phase 5a).  Shared memory holds one float32
 //     copy of everything; ldmatrix is 16-bit only, so the fragments come
 //     from 32-bit ld.shared, one element a lane.
-//   - Data gradients, an implicit GEMM per conv: M = the 8 x 16 pixels of
-//     the block's tile, N = 64 output channels, K = 9 taps x 64 channels.
+//   - Data gradients, an implicit GEMM per conv (the tile of
+//     tf32_conv.cuh, which kernels 2-3's float32 entries share): M = the
+//     8 x 16 pixels of the block's tile, N = 64 output channels, K = 9
+//     taps x 64 channels.
 //     8 warps; a warp owns two tile rows (two m-tiles of 16 pixels) x 32
 //     channels (four n-tiles), so a split A fragment feeds 12 mma and a
 //     split B fragment 6.  A tap shift is another row address into the
@@ -107,7 +109,7 @@
 // wgrad_partial_kernel keeps 3 x 64 x 64 partial sums in registers
 // (thread: 4 input x 4 output channels for each dx).
 #include "conv_tile.cuh"
-#include "mma.cuh"
+#include "tf32_conv.cuh"
 
 namespace {
 
@@ -369,16 +371,10 @@ int launch_bwd_a(const void* dz1, const void* feat, const void* g, const float* 
 // The float32 kernels on the tensor cores, 3xTF32 (see the head of this file).
 namespace tf32 {
 
-constexpr int WARPS = 8, THREADS = 32 * WARPS;
-constexpr int IH = TH + 2, IW = TW + 2;  // the data tile's window, with the 1-pixel halo
-constexpr int PS = C + 4;                // window pixel and weight-row stride (floats)
-constexpr int CPP = C / 4;               // 16-byte chunks a pixel or weight row
-constexpr int WIN = IH * IW * PS;        // floats of a window
-constexpr int WCONV = 9 * C * PS;        // floats of a conv's weights, [tap][out][in]
-constexpr int WIN_CHUNKS = IH * IW * CPP;
+using namespace pfnl::tf32;  // the data tile (tf32_conv.cuh)
+
 constexpr int OWN = (WIN_CHUNKS + THREADS - 1) / THREADS;  // window chunks a thread owns
 constexpr size_t SMEM_DATA = (size_t)(WCONV + WIN) * sizeof(float);
-static_assert(WCONV % 4 == 0 && PS % 4 == 0, "16-byte aligned rows");
 
 // weight gradients: an item's input rows y0-1+dy.. (TH x WX) and dz tile (TH x TW)
 constexpr int WX = TW + 2;
@@ -388,29 +384,7 @@ constexpr int STAGE = XWIN + DWIN;
 constexpr size_t SMEM_WGRAD = 2 * (size_t)STAGE * sizeof(float);
 static_assert(STAGE % 4 == 0 && WPS % 4 == 0, "16-byte aligned rows");
 
-using DAcc = float[2][4][4];  // [m-tile: tile row][n-tile][fragment]
 using WAcc = float[3][4][4];
-
-template <int M, int N>
-__device__ __forceinline__ void zero(float (&acc)[M][N][4]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-}
-
-// The IH x IW window whose top-left pixel is (y0-1, x0-1) of img [h, w, 64]
-// into s (pixels PS apart); pixels outside the image are zero.
-template <bool ASYNC>
-__device__ __forceinline__ void stage_window(float* s, const float* __restrict__ img, int h, int w,
-                                             int y0, int x0, const float* any) {
-  for (int i = threadIdx.x; i < WIN_CHUNKS; i += THREADS) {
-    const int p = i / CPP, c = (i % CPP) * 4;
-    const int gy = y0 - 1 + p / IW, gx = x0 - 1 + p % IW;
-    const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    pfnl::stage_f32x4<ASYNC>(s + p * PS + c, img + ((ptrdiff_t)gy * w + gx) * C + c, inside, any);
-  }
-}
 
 // A conv's 9 x 64 weight rows of 64 floats into s (rows PS apart).
 template <bool ASYNC>
@@ -418,54 +392,6 @@ __device__ __forceinline__ void stage_weights(float* s, const float* __restrict_
   for (int i = threadIdx.x; i < 9 * C * CPP; i += THREADS) {
     const int r = i / CPP, c = (i % CPP) * 4;
     pfnl::stage_f32x4<ASYNC>(s + r * PS + c, wt + (size_t)r * C + c, true, wt);
-  }
-}
-
-// acc += the 3x3 conv of the window `win` with s_w [9][64 out][PS] at the
-// warp's pixels: tile rows 2 (warp / 2) + mt, columns 0..15, output
-// channels 32 (warp % 2) + 8 j + 2 (lane % 4) + (e & 1) at pixel column
-// lane / 4 + 8 (e / 2) of acc[mt][j][e].  The mma accumulate with
-// truncation, so each tap sums into a fresh `part` (24 mma a chain), added
-// into acc in float32 after the tap.
-__device__ __forceinline__ void conv3x3(const float* win, const float* s_w, int warp, int lane,
-                                        DAcc& acc) {
-  const int g = lane / 4, t = lane % 4;
-  const float* a_row = win + (2 * (warp / 2) * IW + g) * PS + t;
-  const float* b_row = s_w + (32 * (warp % 2) + g) * PS + t;
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const float* a_tap = a_row + ((tap / 3) * IW + tap % 3) * PS;
-    const float* b_tap = b_row + tap * C * PS;
-    DAcc part;
-    zero(part);
-#pragma unroll
-    for (int kk = 0; kk < C; kk += 8) {
-      uint32_t b[4][2][2], a[2][2][4];  // [tile][hi, lo][register]
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* bp = b_tap + 8 * j * PS + kk;  // (k t, n g), (k t+4, n g)
-        pfnl::split_tf32(bp[0], b[j][0][0], b[j][1][0]);
-        pfnl::split_tf32(bp[4], b[j][0][1], b[j][1][1]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* ap = a_tap + mt * IW * PS + kk;  // (pixel g, channel t)
-        pfnl::split_tf32(ap[0], a[mt][0][0], a[mt][1][0]);
-        pfnl::split_tf32(ap[8 * PS], a[mt][0][1], a[mt][1][1]);
-        pfnl::split_tf32(ap[4], a[mt][0][2], a[mt][1][2]);
-        pfnl::split_tf32(ap[8 * PS + 4], a[mt][0][3], a[mt][1][3]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) pfnl::mma_3xtf32(part[mt][j], a[mt], b[j]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][j][e] += part[mt][j][e];
   }
 }
 
@@ -502,12 +428,6 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, const float*
       }
     }
   }
-}
-
-__device__ __forceinline__ void tile_origin(int w, int& y0, int& x0) {
-  const int tiles_x = (w + TW - 1) / TW;
-  y0 = (blockIdx.x / tiles_x) * TH;
-  x0 = (blockIdx.x % tiles_x) * TW;
 }
 
 // K5's data gradients: d_i1_t = conv(dz2_t, W2f'), dzsum = sum_t dz2_t,

@@ -16,11 +16,11 @@ launch from a loaded artifact counts, and tracing counts none; kernels 4
 and 9 are two launches from one call, counted once):
 
   nonlocal_flash  kernel 1   ops/cuda/nonlocal_flash.py  csrc/nonlocal_flash.cu, mma.cuh
-  pfrb_a          kernel 2   ops/cuda/pfrb.py            csrc/pfrb.cu
-  pfrb_b          kernel 3   ops/cuda/pfrb.py            csrc/pfrb.cu
+  pfrb_a          kernel 2   ops/cuda/pfrb.py            csrc/pfrb.cu, tf32_conv.cuh (float32)
+  pfrb_b          kernel 3   ops/cuda/pfrb.py            csrc/pfrb.cu, as kernel 2
   pfnl_tail       kernel 4   ops/cuda/pfnl_tail.py       csrc/pfnl_tail.cu, duf_conv_mma.cuh
-  pfrb_bwd_b      kernel 5   ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
-  pfrb_bwd_a      kernel 6   ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu
+  pfrb_bwd_b      kernel 5   ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu, tf32_conv.cuh (float32)
+  pfrb_bwd_a      kernel 6   ops/cuda/pfrb_bwd.py        csrc/pfrb_bwd.cu, as kernel 5
   bounded_splat   kernel 7   ops/cuda/bounded_splat.py   csrc/bounded_splat.cu
   spmc_splat      kernel 8   ops/cuda/spmc_splat.py      csrc/spmc_splat.cu
   duf_block       kernel 9   ops/cuda/duf_block.py       csrc/duf_block.cu, duf_conv_mma.cuh
@@ -28,8 +28,10 @@ and 9 are two launches from one call, counted once):
   duf_dense       kernel 10  ops/cuda/duf_dense.py       csrc/duf_dense.cu, as kernel 9
 
 The bf16 entries of kernels 1-4, 9 and 10 run on the tensor cores
-(mma.sync; 4, 9 and 10 on the implicit-GEMM tile of duf_conv_mma.cuh);
-kernels 5-8, and the float32 entries of the others, on CUDA cores.
+(mma.sync; 4, 9 and 10 on the implicit-GEMM tile of duf_conv_mma.cuh), and
+so do the float32 entries of kernels 2, 3, 5 and 6 (3xTF32, on the tile of
+tf32_conv.cuh); kernels 7 and 8, the bf16 entries of 5 and 6 and the
+float32 entries of 1, 4, 9 and 10 run on CUDA cores.
 
 Kernels 1-6 serve PFNL; 7 and 8 the flow families, reached through
 ops/warp.py's `forward_warp_local` and `forward_warp_spmc`; 9 and 10 DUF's

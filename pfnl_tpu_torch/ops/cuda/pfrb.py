@@ -3,10 +3,11 @@
 Counterparts of `_kernel_a` / `_kernel_b` in
 pfnl_tpu/ops/pallas/pfrb_pack.py; the plain versions are `pfrb_a_ref` and
 `pfrb_b_ref` (ops/pfrb_ref.py).  Activations are contiguous [N,T,H,W,64]
-float32 or bfloat16; kernels are HWIO, as flax stores them.  bf16 runs the
-tensor-core kernels (weights handed over as bf16, rounded once here),
-float32 the CUDA-core ones (weights as float32); biases go as float32
-rounded to the activation type, as the plain versions cast them.
+float32 or bfloat16; kernels are HWIO, as flax stores them.  Both run on
+the tensor cores: bf16 as bf16 products (weights handed over as bf16,
+rounded once here), float32 as 3xTF32 products, which hold float32's
+accuracy (weights as float32); biases go as float32 rounded to the
+activation type, as the plain versions cast them.
 """
 
 import torch

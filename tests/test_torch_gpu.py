@@ -122,17 +122,23 @@ def _pfrb_params(gen, t, c=64):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37), (1, 7, 45, 83)])
+@pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37), (1, 7, 45, 83), (16, 7, 32, 32)])
 def test_pfrb_kernels(gen, dtype, shape):
     """Kernels 2 and 3 at T = 7 and 3, with H and W not multiples of the
-    bf16 kernels' 8 x 32 tile (nor of the float32 ones' 8 x 16)."""
+    bf16 kernels' 8 x 32 tile (nor of the float32 ones' 8 x 16), and at the
+    training shape (batch 16, LR 32x32); a second launch is bitwise the
+    same."""
     n, t, h, w = shape
     feat = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
     w1, b1, wfuse, bfuse, w2f, w2b, b2 = _pfrb_params(gen, t)
     i1, base = pfrb_a_ref(feat, w1, b1, wfuse, bfuse)
-    _assert_close(pfrb_a(feat, w1, b1, wfuse, bfuse), (i1, base), dtype)
-    _assert_close(pfrb_b(feat, i1, base, w2f, w2b, b2),
-                  pfrb_b_ref(feat, i1, base, w2f, w2b, b2), dtype)
+    got_a = pfrb_a(feat, w1, b1, wfuse, bfuse)
+    _assert_close(got_a, (i1, base), dtype)
+    got_b = pfrb_b(feat, i1, base, w2f, w2b, b2)
+    _assert_close(got_b, pfrb_b_ref(feat, i1, base, w2f, w2b, b2), dtype)
+    again_a, again_b = pfrb_a(feat, w1, b1, wfuse, bfuse), pfrb_b(feat, i1, base, w2f, w2b, b2)
+    for a, b in zip(got_a + (got_b,), again_a + (again_b,)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

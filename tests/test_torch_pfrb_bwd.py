@@ -138,38 +138,48 @@ def _tf32(x):
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def _tensor_core_gemm(a, b, split):
-    """a [M,K] @ b [K,N] with the operand arithmetic of kernels 5-6's float32
-    entries: k-steps of 8, each TF32 product of a step exact (float64) and
-    added to a float32 accumulator.  split: x = hi + lo, both TF32, and the
-    products lo*hi, hi*lo, hi*hi in that order (3xTF32); else one TF32
-    product hi*hi."""
+def _tensor_core_gemm(a, b, split, chunk=None):
+    """a [M,K] @ b [K,N] with the operand arithmetic of the float32 PFRB
+    kernels (2-3 and 5-6): k-steps of 8, each TF32 product of a step exact
+    (float64) and added to a float32 accumulator.  split: x = hi + lo, both
+    TF32, and the products lo*hi, hi*lo, hi*hi in that order (3xTF32); else
+    one TF32 product hi*hi.  chunk: every `chunk` of K (a conv's tap, a
+    frame of the fusion) sums into a fresh accumulator, added to the float32
+    total after it; None, one accumulator over all of K."""
     a_hi, b_hi = _tf32(a), _tf32(b)
     a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
     pairs = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if split else [(a_hi, b_hi)]
-    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    for k in range(0, a.shape[1], 8):
-        for x, y in pairs:
-            prod = x[:, k:k + 8].astype(np.float64) @ y[k:k + 8].astype(np.float64)
-            acc = (acc + prod).astype(np.float32)
-    return acc
+    chunk = chunk or a.shape[1]
+    total = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for c in range(0, a.shape[1], chunk):
+        acc = np.zeros_like(total)
+        for k in range(c, c + chunk, 8):
+            for x, y in pairs:
+                prod = x[:, k:k + 8].astype(np.float64) @ y[k:k + 8].astype(np.float64)
+                acc = (acc + prod).astype(np.float32)
+        total = (total + acc).astype(np.float32)
+    return total
 
 
-@pytest.mark.parametrize("m,k", [(128, 576), (576, 16384)],
-                         ids=["data_gradient", "weight_gradient"])
-def test_3xtf32_split_holds_the_float32_check(m, k):
-    """The GEMMs of kernels 5-6 (a data gradient: 128 pixels x 9 taps x 64
-    channels; a weight gradient: 576 (tap, channel) x 16,384 pixels), 64
-    output channels: the 3xTF32 split stays within 1e-5 of max|float64|,
-    while one TF32 product lands above the 1e-4 kernel check, which is why
-    the kernels split."""
+@pytest.mark.parametrize("m,k,chunk", [(128, 576, None), (576, 16384, None), (128, 576, 64),
+                                       (128, 448, 64)],
+                         ids=["data_gradient", "weight_gradient", "forward_conv", "forward_fusion"])
+def test_3xtf32_split_holds_the_float32_check(m, k, chunk):
+    """The GEMMs of the float32 PFRB kernels, 64 output channels: kernels
+    5-6's data gradient (128 pixels x 9 taps x 64 channels) and weight
+    gradient (576 (tap, channel) x 16,384 pixels); kernels 2-3's conv (128
+    pixels x 576, a fresh accumulator each tap) and kernel 2's fusion (the
+    7 frames' 64 channels, a fresh accumulator each frame, into one float32
+    sum).  The 3xTF32 split stays within 1e-5 of max|float64|, while one
+    TF32 product lands above the 1e-4 kernel check, which is why the
+    kernels split."""
     rng = np.random.default_rng(8)
     a = rng.standard_normal((m, k)).astype(np.float32)
     b = (rng.standard_normal((k, 64)) * 0.05).astype(np.float32)
     want = a.astype(np.float64) @ b.astype(np.float64)
     scale = np.abs(want).max()
-    three = np.abs(_tensor_core_gemm(a, b, split=True) - want).max() / scale
-    one = np.abs(_tensor_core_gemm(a, b, split=False) - want).max() / scale
+    three = np.abs(_tensor_core_gemm(a, b, split=True, chunk=chunk) - want).max() / scale
+    one = np.abs(_tensor_core_gemm(a, b, split=False, chunk=chunk) - want).max() / scale
     assert three <= 1e-5, three
     assert one > 1e-4, one
 
