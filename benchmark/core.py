@@ -7,11 +7,16 @@ metric is a file of its own, found by name:
   benchmark/configs/<file>               a configuration (the manifest names it)
   benchmark/traffic/<traffic>.json       a traffic mix; its "driver" names the code
   benchmark/drivers/<driver>.py          run(ctx) -> the run's record
+  benchmark/reference/<model>.py         the plain reference of a configuration's "model"
   benchmark/metrics/<metric>.py          read(record) -> a number, or None
   benchmark/limits/<cell>.json           the limit of each number `correct` compares
 
 A cell is a pair of a configuration and a traffic mix, so it needs no file
-of its own beyond its limits.
+of its own beyond its limits.  A model's reference module gives what the
+drivers call: serving, `LR_MULTIPLE` (the multiple its LR frames are
+edge-padded to) and `serve(p, x, cfg, prec)` (a window batch [N,T,h,w,3] of
+LR RGB in [0, 1] -> HR RGB [N,S h,S w,3]); training, `train_loss(p, gt, lr,
+cfg)` (the loss of the SR of the degraded window against gt's centre frame).
 """
 
 import importlib.util
@@ -73,6 +78,22 @@ def driver(traffic, root=ROOT):
 def reader(metric_name, root=ROOT):
     """The reader of a metric: benchmark/metrics/<name>.py's read(record)."""
     return _load("metrics", metric_name, root).read
+
+
+def reference(config, root=ROOT, needs=()):
+    """The plain reference of the configuration's model,
+    benchmark/reference/<config["model"]>.py, holding every entry of `needs`;
+    a LookupError that names the file and the model where either is missing."""
+    model = config["model"]
+    rel = f"benchmark/reference/{model}.py"
+    if not os.path.isfile(os.path.join(root, rel)):
+        raise LookupError(f"{rel} is missing: no plain reference of model {model!r}")
+    mod = _load("reference", model, root)
+    missing = [n for n in needs if not hasattr(mod, n)]
+    if missing:
+        raise LookupError(f"{rel}, the plain reference of model {model!r}, lacks "
+                          + ", ".join(missing))
+    return mod
 
 
 def p_quantile(values, q: int, n: int = 100):

@@ -10,12 +10,13 @@ timestamps each HR frame as the Predictor hands it over and keeps the
 frames the output check compares (each clip's first and last frame and
 one between, drawn from the seed).
 
-After the window: the reference, on the clips of a sample drawn from the
-seed that holds the longest clip completed, computes each kept frame from
-the same LR frames (its window edge-clamped, the LR edge-padded to the
-model's multiple, the HR cropped back) in float32, and the check compares
-what the sink received with it: the RMS gap of each frame in uint8 levels,
-the worst frame's reported.
+After the window: the reference (benchmark/reference/<model>.py, found by
+the configuration's "model" before anything is set up), on the clips of a
+sample drawn from the seed that holds the longest clip completed, computes
+each kept frame from the same LR frames (its window edge-clamped, the LR
+edge-padded to the reference's LR_MULTIPLE, its `serve`, the HR cropped
+back) in float32, and the check compares what the sink received with it:
+the RMS gap of each frame in uint8 levels, the worst frame's reported.
 """
 
 import contextlib
@@ -32,6 +33,7 @@ from benchmark import core, scenes, weights
 from benchmark.reference.ops import FLOAT32, Precision, clamped_window, pad_to_multiple
 
 TRACE_CLIPS_MAX = 400  # a traced run serves past its window until both spans are done
+SERVING = ("LR_MULTIPLE", "serve")  # what the clips' check calls of a reference module
 
 class ClipStore:
     """Frame store of the clips in flight: directory -> list of uint8 frames."""
@@ -88,6 +90,7 @@ def kept_frames(seed, clip, length):
 
 def run(ctx):
     cfg, traffic, dev = ctx.config, ctx.traffic, ctx.device
+    plain = core.reference(cfg, ctx.spec["root"], SERVING)
     from pfnl_tpu_torch.infer.predictor import Predictor
 
     h, w = traffic["lr_hw"]
@@ -164,7 +167,7 @@ def run(ctx):
     rec["checked_frames"] = sum(len(kept_frames(ctx.sub_seed(4), c["i"], c["length"]))
                                 for c in sample)
     rec["checks"] = {"worst_frame_rms": worst_frame_rms(
-        cfg, ref_weights, frames, sample, sink.kept, ctx.sub_seed(4), FLOAT32, dev)}
+        plain, cfg, ref_weights, frames, sample, sink.kept, ctx.sub_seed(4), FLOAT32, dev)}
     return rec
 
 
@@ -180,44 +183,38 @@ def check_sample(clips, n, seed):
     return [longest] + [rest[k] for k in sorted(pick)]
 
 
-def reference_frames(cfg, ref_weights, clip_frames, centres, prec, device):
-    """{centre: HR float32 [H,W,3] in [0, 255]} of the reference (or of a
-    control at another precision) for the windows centred on `centres`."""
-    from benchmark.reference import duf, pfnl
-
-    t, mult = cfg["num_frames"], 2
+def reference_frames(plain, cfg, ref_weights, clip_frames, centres, prec, device):
+    """{centre: HR float32 [H,W,3] in [0, 255]} of the reference module
+    `plain` (or of a control at another precision) for the windows centred
+    on `centres`."""
+    t, mult = cfg["num_frames"], plain.LR_MULTIPLE
     out = {}
     lr = torch.as_tensor(clip_frames, device=device).float() / 255.0   # [L,h,w,3]
     h0, w0 = lr.shape[1], lr.shape[2]
     for j in centres:
         x = pad_to_multiple(lr[clamped_window(lr.shape[0], j, t)][None], mult)
         with torch.no_grad():
-            if cfg["model"] == "pfnl":
-                sr = pfnl.forward(ref_weights, x, cfg["num_blocks"], prec)
-            else:
-                sr = duf.forward(ref_weights, x, cfg["same_blocks"], cfg["valid_blocks"],
-                                 cfg["scale"], prec)
+            sr = plain.serve(ref_weights, x, cfg, prec)
         sr = sr[0, :h0 * cfg["scale"], :w0 * cfg["scale"]]
         out[j] = (sr.float() * 255.0).clamp(0, 255)
     return out
 
 
-def worst_frame_rms(cfg, ref_weights, frames, sample, kept, keep_seed, prec, device,
-                    served=None):
+def worst_frame_rms(plain, cfg, ref_weights, frames, sample, kept, keep_seed, prec, device):
     """The largest, over the sample's kept frames, of the RMS gap in uint8
-    levels between the frame served (the sink's, or `served(clip, j, ref)`
-    for a control) and the float32 reference; inf where a kept frame is
-    missing."""
+    levels between the frame served (the sink's, or for a control at `prec`
+    its output rounded) and the float32 reference; inf where a kept frame
+    is missing."""
     from benchmark.reference.ops import tf32_off
 
     tf32_off()
     worst = 0.0
     for c in sample:
         centres = sorted(kept_frames(keep_seed, c["i"], c["length"]))
-        ref = reference_frames(cfg, ref_weights, frames[c["scene"], :c["length"]], centres,
-                               FLOAT32, device)
-        ctrl = (reference_frames(cfg, ref_weights, frames[c["scene"], :c["length"]], centres,
-                                 prec, device) if prec is not FLOAT32 else None)
+        clip = frames[c["scene"], :c["length"]]
+        ref = reference_frames(plain, cfg, ref_weights, clip, centres, FLOAT32, device)
+        ctrl = (reference_frames(plain, cfg, ref_weights, clip, centres, prec, device)
+                if prec is not FLOAT32 else None)
         for j in centres:
             if ctrl is not None:
                 got = torch.round(ctrl[j])
@@ -237,6 +234,7 @@ def control(ctx, kind="fp8"):
     the clips the check would sample (no window: the same plan, from the
     seed)."""
     cfg, traffic, dev = ctx.config, ctx.traffic, ctx.device
+    plain = core.reference(cfg, ctx.spec["root"], SERVING)
     h, w = traffic["lr_hw"]
     frames = scenes.make(traffic["scenes"], traffic["clip_frames"][1], h, w, ctx.sub_seed(1),
                          dev).cpu().numpy()
@@ -244,5 +242,5 @@ def control(ctx, kind="fp8"):
     order = plan(traffic, ctx.sub_seed(3), 64)
     clips = [dict(i=i, length=L, scene=s) for i, (L, s) in enumerate(order)]
     sample = check_sample(clips, traffic["check_clips"], ctx.sub_seed(5))
-    return worst_frame_rms(cfg, ref_weights, frames, sample, {}, ctx.sub_seed(4),
+    return worst_frame_rms(plain, cfg, ref_weights, frames, sample, {}, ctx.sub_seed(4),
                            Precision(kind), dev)

@@ -9,10 +9,12 @@ the window: `fit` until the feed, the benchmark's wrapper around the
 pipeline, finds the window closed at a step's `get_batch`.  No checkpoint
 is saved and nothing is evaluated inside the window.
 
-After the window the reference follows the first three steps from the
-batches `fit` received (the feed keeps them) and the same weights: the
-first step's loss, the norm of the first gradient and of the parameters'
-change after three steps, leaf by leaf (`compare`).
+After the window the reference (benchmark/reference/train.py with the
+`train_loss` of benchmark/reference/<model>.py, found by the
+configuration's "model" before anything is set up) follows the first three
+steps from the batches `fit` received (the feed keeps them) and the same
+weights: the first step's loss, the norm of the first gradient and of the
+parameters' change after three steps, leaf by leaf (`compare`).
 """
 
 import contextlib
@@ -29,6 +31,7 @@ import torch
 from benchmark import core, scenes, weights
 
 NEVER = 10 ** 12  # save_every: no checkpoint, no evaluation inside the run
+TRAINING = ("train_loss",)  # what the training check calls of a reference module
 
 
 class WindowClosed(Exception):
@@ -83,6 +86,7 @@ def run(ctx):
     from pfnl_tpu_torch.train.trainer import Trainer
 
     cfg, traffic, dev = ctx.config, ctx.traffic, ctx.device
+    plain = core.reference(cfg, ctx.spec["root"], TRAINING)
     tr = cfg["train"]
     torch.backends.cuda.matmul.allow_tf32 = tr["tf32"]
     torch.backends.cudnn.allow_tf32 = tr["tf32"]
@@ -167,19 +171,19 @@ def run(ctx):
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    rec["checks"] = compare(cfg, w0, batches, seed, prog_losses, g1, params3,
+    rec["checks"] = compare(plain, cfg, w0, batches, seed, prog_losses, g1, params3,
                             diag=rec.setdefault("diag", {}))
     return rec
 
 
-def reference(cfg, w0, batches, seed, tf32=False):
+def reference(plain, cfg, w0, batches, seed, tf32=False):
     from benchmark.reference import train
 
     tr = cfg["train"]
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
     try:
-        return train.run(w0, batches, seed, cfg["num_blocks"], cfg["scale"],
+        return train.run(plain, w0, batches, seed, cfg,
                          (tr["learning_rate"], tr["end_lr"], tr["decay_power"],
                           int(tr["decay_step"])))
     finally:
@@ -187,7 +191,7 @@ def reference(cfg, w0, batches, seed, tf32=False):
         torch.backends.cudnn.allow_tf32 = False
 
 
-def compare(cfg, w0, batches, seed, losses, g1, params3, ref=None, diag=None):
+def compare(plain, cfg, w0, batches, seed, losses, g1, params3, ref=None, diag=None):
     """The numbers `correct` holds, against the reference from the same
     weights and batches: the first step's loss gap relative to the
     reference's loss; leaf by leaf, the gap between the program's and the
@@ -199,7 +203,7 @@ def compare(cfg, w0, batches, seed, losses, g1, params3, ref=None, diag=None):
     change go to `diag`: Adam's first steps move each coordinate by about
     the learning rate whatever its gradient, so float32 round-off in the
     near-zero gradients of a few coordinates moves them apart."""
-    ref_losses, ref_g1, ref_p = ref or reference(cfg, w0, batches, seed)
+    ref_losses, ref_g1, ref_p = ref or reference(plain, cfg, w0, batches, seed)
     if len(losses) < len(ref_losses) or not ref_losses:
         return {"first_loss_gap": float("inf"), "grad_gap": float("inf"),
                 "median_change_gap": float("inf")}
@@ -232,6 +236,7 @@ def control(ctx, kind="tf32"):
     from benchmark.reference import train
 
     cfg, traffic, dev = ctx.config, ctx.traffic, ctx.device
+    plain = core.reference(cfg, ctx.spec["root"], TRAINING)
     tr = cfg["train"]
     store, seqs = sequences(ctx)
     _, w0 = weights.build(cfg, torch.float32, dev, ctx.sub_seed(2))
@@ -246,22 +251,22 @@ def control(ctx, kind="tf32"):
     finally:
         pipe.close()
     if kind == "tf32":
-        got = reference(cfg, w0, batches, seed, tf32=True)
+        got = reference(plain, cfg, w0, batches, seed, tf32=True)
     elif kind == "half_batch":
         full = train.loss_fn
 
-        def half(params, gt_u8, f, num_blocks, scale):
+        def half(model, params, gt_u8, f, config):
             b = gt_u8.shape[0] // 2
-            return full(params, gt_u8[:b], f[:b], num_blocks, scale)
+            return full(model, params, gt_u8[:b], f[:b], config)
 
         train.loss_fn = half
         try:
-            got = reference(cfg, w0, batches, seed)
+            got = reference(plain, cfg, w0, batches, seed)
         finally:
             train.loss_fn = full
     else:
         raise ValueError(f"unknown control {kind!r}")
     diag = {}
-    out = compare(cfg, w0, batches, seed, *got, diag=diag)
+    out = compare(plain, cfg, w0, batches, seed, *got, diag=diag)
     out.update(diag)
     return out

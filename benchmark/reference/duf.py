@@ -18,6 +18,8 @@
 
 BatchNorm: gamma (x - moving_mean) / sqrt(moving_variance + 1e-3) + beta.
 Weights are a dict keyed by the program's parameter and buffer names.
+The benchmark's serving entries (benchmark/core.py `reference`):
+`LR_MULTIPLE` and `serve`.
 """
 
 import torch
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from benchmark.reference.ops import FLOAT32, conv3d, depth_to_space
 
 EPS = 1e-3
+LR_MULTIPLE = 2  # the Predictor pads every window family's LR frames, DUF's to even sizes
 
 
 def _bn(p, name, x, prec):
@@ -63,3 +66,8 @@ def forward(p, x, n_same: int, n_valid: int, scale: int = 4, prec=FLOAT32):
         chans.append(depth_to_space(torch.einsum("nhwp,nhwpr->nhwr", taps, filt), scale))
     sr = torch.cat(chans, -1)
     return prec(sr + depth_to_space(res[:, 0], scale))
+
+
+def serve(p, x, cfg, prec=FLOAT32):
+    """A window batch x [N,T,h,w,3] of LR RGB -> HR RGB [N,S h,S w,3]."""
+    return forward(p, x, cfg["same_blocks"], cfg["valid_blocks"], cfg["scale"], prec)

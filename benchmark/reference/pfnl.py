@@ -19,12 +19,18 @@ reference repository `model/pfnl.py`, the non-local block `utils.py:18-71`).
 Weights are a dict keyed by the program's parameter names (flax's, as the
 port keeps them).  `prec` rounds every layer's operands and output (see
 ops.Precision); the reference is float32 (`ops.FLOAT32`).
+
+The benchmark's entries (benchmark/core.py `reference`): `LR_MULTIPLE` and
+`serve` for serving, `train_loss` for training (the Charbonnier loss,
+reference `model/pfnl.py:89`).
 """
 
 import torch
 
 from benchmark.reference.ops import (FLOAT32, attention, conv2d_same, depth_to_space, lrelu,
                                      resize_bicubic, space_to_depth)
+
+LR_MULTIPLE = 2  # the space-to-depth of the non-local block
 
 
 def forward(p, x, num_blocks: int, prec=FLOAT32):
@@ -61,3 +67,16 @@ def forward(p, x, num_blocks: int, prec=FLOAT32):
              + prec(p["convmerge2_bias"]))
     bic = prec(resize_bicubic(x[:, t // 2], (4 * h, 4 * w)))
     return prec(depth_to_space(o, 2) + bic)
+
+
+def serve(p, x, cfg, prec=FLOAT32):
+    """A window batch x [N,T,h,w,3] of LR RGB -> HR RGB [N,4h,4w,3]."""
+    return forward(p, x, cfg["num_blocks"], prec)
+
+
+def train_loss(p, gt, lr, cfg):
+    """The SR of the LR windows lr [B,T,h,w,3] against the centre frames of
+    gt [B,T,4h,4w,3]: mean(sqrt((sr - gt)^2 + 1e-6))."""
+    sr = forward(p, lr, cfg["num_blocks"])
+    centre = gt[:, gt.shape[1] // 2]
+    return torch.mean(torch.sqrt((sr - centre) ** 2 + 1e-6))

@@ -1,13 +1,14 @@
-"""PFNL's training step, plain PyTorch, float32 (reference repository
-`model/pfnl.py:21-37,89,156-199`, `model/base_model.py:150-199`):
+"""The training step, plain PyTorch, float32, the parts every family shares
+(reference repository `model/base_model.py:150-199`, `model/pfnl.py:21-37,
+156-199`):
 
     gt crops [B,T,S,S,3] uint8 -> float / 255; per sample, rows flipped,
     columns flipped, then rows and columns swapped, each with probability
-    1/2; LR = the degradation (13x13 Gaussian, sigma 1.6, stride 4) of every
-    frame; the model's SR of the LR window against the centre GT frame by
-    the Charbonnier loss mean(sqrt((sr - gt)^2 + 1e-6)); Adam (0.9, 0.999,
-    1e-8) at the polynomial learning rate of the step before its increment
-    (1e-3 to 1e-4 over decay_steps, power 1).
+    1/2; LR = the degradation (13x13 Gaussian, sigma 1.6, stride `scale`) of
+    every frame; the model's loss of the SR of the LR window against the
+    centre GT frame (its reference module's `train_loss`); Adam (0.9,
+    0.999, 1e-8) at the polynomial learning rate of the step before its
+    increment (1e-3 to 1e-4 over decay_steps, power 1).
 
 The flips are the training semantics' random draw: the uniform values of
 step k come from a CUDA `torch.Generator` seeded with ((seed + 1) << 32) + k,
@@ -17,7 +18,6 @@ them itself from that rule.
 
 import torch
 
-from benchmark.reference import pfnl
 from benchmark.reference.ops import degrade
 
 
@@ -45,18 +45,17 @@ def augment(gt, f):
     return torch.stack(out)
 
 
-def loss_fn(params, gt_u8, f, num_blocks: int, scale: int):
+def loss_fn(model, params, gt_u8, f, cfg):
     dtype = next(iter(params.values())).dtype
     gt = augment(gt_u8.to(dtype) / 255.0, f)
-    lr = degrade(gt, scale)
-    sr = pfnl.forward(params, lr, num_blocks)
-    centre = gt[:, gt.shape[1] // 2]
-    return torch.mean(torch.sqrt((sr - centre) ** 2 + 1e-6))
+    lr = degrade(gt, cfg["scale"])
+    return model.train_loss(params, gt, lr, cfg)
 
 
-def run(params0, batches, seed: int, num_blocks: int, scale: int, schedule):
+def run(model, params0, batches, seed: int, cfg, schedule):
     """The steps of `batches` (uint8 GT crops on the device, in order) from
-    the weights params0 (name -> float32 tensor).  schedule: (init lr, end
+    the weights params0 (name -> float32 tensor) of the configuration cfg,
+    whose reference module `model` gives its loss.  schedule: (init lr, end
     lr, power, decay steps).  Returns (losses, first step's gradients,
     weights after the last step)."""
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params0.items()}
@@ -66,7 +65,7 @@ def run(params0, batches, seed: int, num_blocks: int, scale: int, schedule):
     b1, b2, eps = 0.9, 0.999, 1e-8
     for k, gt_u8 in enumerate(batches):
         f = flips(seed, k, gt_u8.shape[0], gt_u8.device)
-        loss = loss_fn(params, gt_u8, f, num_blocks, scale)
+        loss = loss_fn(model, params, gt_u8, f, cfg)
         grads = torch.autograd.grad(loss, list(params.values()))
         losses.append(float(loss.detach()))
         if first_grads is None:

@@ -1,5 +1,6 @@
 """A cell cut to a size the CPU runs in seconds, for the benchmark's tests:
-the configuration's widths kept, PFNL at 2 blocks, small frames, few clips."""
+the configuration's widths kept, its `cpu_cut` applied (a key only these
+tests read), small frames, few clips."""
 
 import time
 
@@ -10,17 +11,25 @@ from benchmark import core
 TINY_SEED = 2 ** 31 + 12345   # beyond 32 signed bits, as the driver's seeds are
 
 
-def spec(cell, root=core.ROOT):
-    s = core.cell(cell, root)
+def cut(s):
+    """The cell's spec `s` cut to the CPU size, in place: the configuration's
+    `cpu_cut` on its keys and on the program's `port_kwargs`, the traffic at
+    small frames and few clips or steps."""
     cfg, tr = s["config"], s["traffic"]
-    if cfg["model"] == "pfnl":
-        cfg["num_blocks"] = cfg["port_kwargs"]["num_blocks"] = 2
+    for k, v in cfg.get("cpu_cut", {}).items():
+        cfg[k] = v
+        if k in cfg["port_kwargs"]:
+            cfg["port_kwargs"][k] = v
     if tr["driver"] == "clips":
         tr.update(lr_hw=[16, 24], clip_frames=[8, 10], scenes=2, check_clips=2)
     else:
         tr.update(sequences=2, sequence_frames=8, gt_hw=[64, 64], warm_steps=1)
         cfg["train"].update(batch_size=2, in_size=8)
     return s
+
+
+def spec(cell, root=core.ROOT):
+    return cut(core.cell(cell, root))
 
 
 def context(s, seed=TINY_SEED, seconds=2.0, device="cpu"):

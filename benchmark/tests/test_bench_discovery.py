@@ -1,10 +1,16 @@
-"""A configuration, a traffic mix, a cell and a per-layer metric are added
-as new files (and entries in the manifest), without editing any file the
-benchmark has: shown in a copy of the checkout."""
+"""A configuration, a traffic mix, a cell, a per-layer metric and a model's
+plain reference are added as new files (and entries in the manifest),
+without editing any file the benchmark has: shown in a copy of the
+checkout.  No harness code branches on a model's name."""
 
+import ast
+import glob
 import json
 import os
 import shutil
+from pathlib import Path
+
+import pytest
 
 import bench_tiny
 from benchmark import core
@@ -16,6 +22,109 @@ def _copy(tmp_path):
                     ignore=shutil.ignore_patterns("__pycache__", ".cache"))
     shutil.copy(os.path.join(core.ROOT, "BENCHMARK.json"), root / "BENCHMARK.json")
     return root
+
+
+def _snapshot(root):
+    return {str(f): f.read_bytes() for f in (root / "benchmark").rglob("*") if f.is_file()}
+
+
+def _add_cell(root, cfg, traffic, limits):
+    """A configuration file, its limits and one cell of it on `traffic`, in
+    the copy's files and manifest; the cell's name."""
+    name = f"{cfg['name']}.{traffic}"
+    (root / f"benchmark/configs/{cfg['name']}.json").write_text(json.dumps(cfg))
+    (root / f"benchmark/limits/{name}.json").write_text(json.dumps(limits))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append(dict(name=cfg["name"], source=cfg["source"],
+                                 file=f"benchmark/configs/{cfg['name']}.json", reduced=[],
+                                 why="a new family"))
+    bench["workloads"].append(dict(name=name, config=cfg["name"], traffic=traffic, chips=1,
+                                   why="a new family's cell"))
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return name
+
+
+MCRESNET = {"name": "mcresnet_x4", "model": "mcresnet",
+            "source": "https://github.com/psychopa4/PFNL/blob/master/model/mcresnet.py",
+            "num_frames": 5, "scale": 4, "port_kwargs": {"num_frames": 5, "scale": 4},
+            "serve_dtype": "float32", "init": [[".", "range:-0.05:0.05"]], "reduced": []}
+
+STUB = '''"""A stub reference: records the shape of each window batch it serves."""
+import json
+import os
+
+import torch
+
+LR_MULTIPLE = 4
+CALLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mcresnet.calls")
+
+
+def serve(p, x, cfg, prec):
+    with open(CALLS, "a") as f:
+        f.write(json.dumps(list(x.shape)) + "\\n")
+    n, _, h, w, _ = x.shape
+    return torch.zeros(n, cfg["scale"] * h, cfg["scale"] * w, 3, device=x.device)
+'''
+
+
+def test_a_new_family_comes_in_as_new_files(tmp_path):
+    """A Y family (LR padded to 4) with its own reference module: the clips
+    driver pads the windows it checks to the module's LR_MULTIPLE."""
+    root = _copy(tmp_path)
+    before = _snapshot(root)
+    name = _add_cell(root, MCRESNET, "udm10", {"worst_frame_rms": 2.0})
+    (root / "benchmark/reference/mcresnet.py").write_text(STUB)
+    spec = bench_tiny.cut(core.cell(name, root=str(root)))
+    spec["traffic"]["lr_hw"] = [18, 26]                 # not a multiple of 4
+    rec = core.driver(spec["traffic"], str(root)).run(bench_tiny.context(spec))
+    calls = [json.loads(line) for line in
+             (root / "benchmark/reference/mcresnet.calls").read_text().splitlines()]
+    assert calls and all(c == [1, 5, 20, 28, 3] for c in calls), calls
+    assert rec["attempted"] > 0 and rec["failed"] == 0, rec["errors"]
+    assert 0 < rec["checks"]["worst_frame_rms"] < float("inf")   # cropped back to 72 x 104
+    for p, data in before.items():
+        assert Path(p).read_bytes() == data
+
+
+@pytest.mark.parametrize("traffic,model,missing", [("udm10", "vespcn", "is missing"),
+                                                   ("paper_train", "duf", "lacks train_loss")])
+def test_a_model_without_its_reference_fails_before_set_up(tmp_path, traffic, model, missing):
+    root = _copy(tmp_path)
+    cfg = json.loads((root / "benchmark/configs/pfnl.json").read_text())
+    cfg.update(name=f"{model}_x4", model=model)
+    name = _add_cell(root, cfg, traffic, {"worst_frame_rms": 2.0})
+    spec = bench_tiny.cut(core.cell(name, root=str(root)))
+    ctx = bench_tiny.context(spec)
+    with pytest.raises(LookupError, match=f"benchmark/reference/{model}.py.*{missing}"):
+        core.driver(spec["traffic"], str(root)).run(ctx)
+    assert [n for n, _ in ctx.marks] == ["start"]       # no scenes, weights or warm-up
+
+
+HARNESS = sorted(glob.glob(os.path.join(core.ROOT, "benchmark", "drivers", "*.py"))
+                 + [os.path.join(core.ROOT, "benchmark", "tests", "bench_tiny.py")])
+
+
+@pytest.mark.parametrize("path", HARNESS, ids=os.path.basename)
+def test_no_harness_code_branches_on_a_model_name(path):
+    """No model's name in a comparison, and no model's reference imported by
+    name: a configuration's "model" finds its files."""
+    from pfnl_tpu_torch.models import MODEL_REGISTRY
+
+    for node in ast.walk(ast.parse(Path(path).read_text())):
+        if isinstance(node, ast.Compare):
+            for v in [node.left] + node.comparators:
+                assert not (isinstance(v, ast.Constant) and v.value in MODEL_REGISTRY), (
+                    path, node.lineno, v.value)
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [f"{node.module}.{a.name}" for a in node.names]
+        else:
+            continue
+        for m in mods:
+            parts = m.split(".")
+            assert not (parts[:2] == ["benchmark", "reference"] and len(parts) > 2
+                        and parts[2] in MODEL_REGISTRY), (path, node.lineno, m)
 
 
 def test_every_cell_resolves_by_name():
@@ -59,8 +168,7 @@ def test_new_files_add_a_cell_and_a_metric(tmp_path):
     assert [m["name"] for m in spec["per_layer"]] == ["frames_checked.serve"]
     assert {m["name"] for m in spec["end_to_end"]} == {"hr_fps", "setup_s"}
     # cut to a CPU size, as bench_tiny cuts the others, and run through the copy's files
-    spec["config"]["num_blocks"] = spec["config"]["port_kwargs"]["num_blocks"] = 2
-    spec["traffic"].update(lr_hw=[16, 24], clip_frames=[8, 9], scenes=2, check_clips=2)
+    bench_tiny.cut(spec)
     rec = core.driver(spec["traffic"], str(root)).run(bench_tiny.context(spec))
     assert core.reader("frames_checked.serve", str(root))(rec) == 6
     assert core.judge(rec, spec["limits"])[0]

@@ -24,17 +24,33 @@ def test_the_reference_imports_nothing_of_the_program(path):
             assert n.split(".")[0] not in core.FORBIDDEN + ("pfnl_tpu_torch",), (path, n)
 
 
+@pytest.mark.parametrize("entry", core.manifest()["workloads"], ids=lambda w: w["name"])
+def test_each_cell_finds_its_reference_padded_as_the_program_pads(entry):
+    from pfnl_tpu_torch.models import MODEL_REGISTRY
+
+    spec = core.cell(entry["name"])
+    cfg = spec["config"]
+    if spec["traffic"]["driver"] == "fit":
+        assert callable(core.reference(cfg, needs=("train_loss",)).train_loss)
+    else:
+        plain = core.reference(cfg, needs=("LR_MULTIPLE", "serve"))
+        assert plain.LR_MULTIPLE == MODEL_REGISTRY[cfg["model"]].lr_multiple
+
+
 def _x(shape, seed=4):
     return torch.rand(shape, generator=torch.Generator().manual_seed(seed))
 
 
 def test_pfnl_reference_is_the_programs_plain_forward():
+    from pfnl_tpu_torch.infer.predictor import serve
+
     cfg = bench_tiny.spec("pfnl.udm10")["config"]
     model, w = weights.build(cfg, torch.float32, "cpu", 21)
     x = _x((2, 7, 12, 16, 3))
     with torch.no_grad():
-        got = model(x, plain=True)[:, 0]
+        got = serve(model, x, plain=True)
         ref = pfnl.forward(w, x, cfg["num_blocks"])
+        assert torch.equal(pfnl.serve(w, x, cfg, ops.FLOAT32), ref)
     assert got.shape == ref.shape == (2, 48, 64, 3)
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
@@ -50,13 +66,16 @@ def test_pfnl_reference_streams_attention_above_the_dense_limit():
 
 
 def test_duf_reference_is_the_programs_plain_forward():
+    from pfnl_tpu_torch.infer.predictor import serve
+
     cfg = bench_tiny.spec("duf52l.udm10")["config"]
     model, w = weights.build(cfg, torch.float32, "cpu", 22)
     model.eval()
     x = _x((1, 7, 8, 10, 3))
     with torch.no_grad():
-        got = model(x, plain=True)[:, 0]
+        got = serve(model, x, plain=True)
         ref = duf.forward(w, x, cfg["same_blocks"], cfg["valid_blocks"], cfg["scale"])
+        assert torch.equal(duf.serve(w, x, cfg, ops.FLOAT32), ref)
     assert got.shape == ref.shape == (1, 32, 40, 3)
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
@@ -75,7 +94,7 @@ def test_training_reference_is_the_programs_step():
     batches = [(_x((2, 7, 32, 32, 3), 30 + k) * 255).to(torch.uint8) for k in range(3)]
     losses = [float(trainer.step({"gt": b.numpy()}, trainer.step_generator(k))["loss"])
               for k, b in enumerate(batches)]
-    ref_losses, _, ref_p = train.run(w0, batches, 5, cfg["num_blocks"], cfg["scale"],
+    ref_losses, _, ref_p = train.run(pfnl, w0, batches, 5, cfg,
                                      (tr["learning_rate"], tr["end_lr"], tr["decay_power"],
                                       int(tr["decay_step"])))
     assert losses == pytest.approx(ref_losses, rel=1e-5)
