@@ -1,5 +1,9 @@
 """Training through the program's `Trainer.fit` over its `TrainPipeline`.
 
+The configuration's "train" states the preset's settings; the traffic's
+"train", where it has one, replaces some of them for this mix (batch size,
+learning rate), in the program and in the reference alike.
+
 Set-up builds one Trainer (the model with the benchmark's seeded weights,
 Adam) and one pipeline over the traffic's seeded in-memory sequences, and
 drives them through `fit` for the first steps: step 1 (Adam's state then
@@ -63,6 +67,12 @@ class Feed:
         return batch
 
 
+def settings(ctx):
+    """The configuration with the traffic's "train" entries over its own."""
+    cfg = ctx.config
+    return dict(cfg, train={**cfg["train"], **ctx.traffic.get("train", {})})
+
+
 def sequences(ctx):
     """The traffic's sequences as (frame store, [Sequence])."""
     from pfnl_tpu_torch.data.frames import MemoryFrames
@@ -85,7 +95,7 @@ def run(ctx):
     from pfnl_tpu_torch.data.pipeline import TrainPipeline
     from pfnl_tpu_torch.train.trainer import Trainer
 
-    cfg, traffic, dev = ctx.config, ctx.traffic, ctx.device
+    cfg, traffic, dev = settings(ctx), ctx.traffic, ctx.device
     plain = core.reference(cfg, ctx.spec["root"], TRAINING)
     tr = cfg["train"]
     torch.backends.cuda.matmul.allow_tf32 = tr["tf32"]
@@ -235,7 +245,7 @@ def control(ctx, kind="tf32"):
 
     from benchmark.reference import train
 
-    cfg, traffic, dev = ctx.config, ctx.traffic, ctx.device
+    cfg, traffic, dev = settings(ctx), ctx.traffic, ctx.device
     plain = core.reference(cfg, ctx.spec["root"], TRAINING)
     tr = cfg["train"]
     store, seqs = sequences(ctx)

@@ -25,11 +25,49 @@ def cut(s):
     else:
         tr.update(sequences=2, sequence_frames=8, gt_hw=[64, 64], warm_steps=1)
         cfg["train"].update(batch_size=2, in_size=8)
+        if "train" in tr:
+            tr["train"].update(batch_size=2, in_size=8)
     return s
 
 
 def spec(cell, root=core.ROOT):
     return cut(core.cell(cell, root))
+
+
+def _cells(root):
+    """[(cell, its configuration, its traffic's driver)] in the manifest's order."""
+    out = []
+    for w in core.manifest(root)["workloads"]:
+        s = core.cell(w["name"], root)
+        out.append((w["name"], w["config"], s["traffic"]["driver"]))
+    return out
+
+
+def one_per_pair(root=core.ROOT):
+    """The first cell of each (configuration, driver) pair, in the manifest's order."""
+    first = {}
+    for name, config, drv in _cells(root):
+        first.setdefault((config, drv), name)
+    return list(first.values())
+
+
+def serving_cells(root=core.ROOT):
+    """The first `clips` cell of each configuration."""
+    firsts = one_per_pair(root)
+    return [name for name, _, drv in _cells(root) if drv == "clips" and name in firsts]
+
+
+def training_cells(root=core.ROOT):
+    """Every `fit` cell."""
+    return [name for name, _, drv in _cells(root) if drv == "fit"]
+
+
+def every_cell(root=core.ROOT):
+    """Every cell, grouped by driver in the order the drivers first appear in
+    the manifest, each group in the manifest's order."""
+    cells = _cells(root)
+    order = list(dict.fromkeys(drv for _, _, drv in cells))
+    return [name for d in order for name, _, drv in cells if drv == d]
 
 
 def context(s, seed=TINY_SEED, seconds=2.0, device="cpu"):

@@ -6,6 +6,7 @@ checkout.  No harness code branches on a model's name."""
 import ast
 import glob
 import json
+import math
 import os
 import shutil
 from pathlib import Path
@@ -44,7 +45,16 @@ def _add_cell(root, cfg, traffic, limits):
     return name
 
 
-MCRESNET = {"name": "mcresnet_x4", "model": "mcresnet",
+STAND_IN = "_stand_in"  # appended to a family's name: a family no model of the program is
+
+
+def _write_new(path, text):
+    """text into path unless the file is there: a file the checkout has stays."""
+    if not path.exists():
+        path.write_text(text)
+
+
+MCRESNET = {"name": "mcresnet_x4", "model": "mcresnet" + STAND_IN,
             "source": "https://github.com/psychopa4/PFNL/blob/master/model/mcresnet.py",
             "num_frames": 5, "scale": 4, "port_kwargs": {"num_frames": 5, "scale": 4},
             "serve_dtype": "float32", "init": [[".", "range:-0.05:0.05"]], "reduced": []}
@@ -66,14 +76,36 @@ def serve(p, x, cfg, prec):
     return torch.zeros(n, cfg["scale"] * h, cfg["scale"] * w, 3, device=x.device)
 '''
 
+SERVING_STUB = '''"""A stub reference: what the clips driver calls of one, computing nothing."""
+import torch
 
-def test_a_new_family_comes_in_as_new_files(tmp_path):
+LR_MULTIPLE = 4
+
+
+def serve(p, x, cfg, prec):
+    n, _, h, w, _ = x.shape
+    return torch.zeros(n, cfg["scale"] * h, cfg["scale"] * w, 3, device=x.device)
+'''
+
+FULL_STUB = SERVING_STUB + '''
+
+def train_loss(p, gt, lr, cfg):
+    return torch.zeros((), device=gt.device)
+'''
+
+
+def test_a_new_family_comes_in_as_new_files(tmp_path, monkeypatch):
     """A Y family (LR padded to 4) with its own reference module: the clips
-    driver pads the windows it checks to the module's LR_MULTIPLE."""
+    driver pads the windows it checks to the module's LR_MULTIPLE.  MCResNet
+    serves under a family name of its own, so the test holds once the
+    checkout has MCResNet's reference."""
+    from pfnl_tpu_torch.models import MODEL_REGISTRY
+
+    monkeypatch.setitem(MODEL_REGISTRY, MCRESNET["model"], MODEL_REGISTRY["mcresnet"])
     root = _copy(tmp_path)
     before = _snapshot(root)
     name = _add_cell(root, MCRESNET, "udm10", {"worst_frame_rms": 2.0})
-    (root / "benchmark/reference/mcresnet.py").write_text(STUB)
+    (root / f"benchmark/reference/{MCRESNET['model']}.py").write_text(STUB)
     spec = bench_tiny.cut(core.cell(name, root=str(root)))
     spec["traffic"]["lr_hw"] = [18, 26]                 # not a multiple of 4
     rec = core.driver(spec["traffic"], str(root)).run(bench_tiny.context(spec))
@@ -86,10 +118,24 @@ def test_a_new_family_comes_in_as_new_files(tmp_path):
         assert Path(p).read_bytes() == data
 
 
-@pytest.mark.parametrize("traffic,model,missing", [("udm10", "vespcn", "is missing"),
-                                                   ("paper_train", "duf", "lacks train_loss")])
-def test_a_model_without_its_reference_fails_before_set_up(tmp_path, traffic, model, missing):
+@pytest.mark.parametrize("traffic,named_after,missing", [("udm10", "vespcn", "is missing"),
+                                                        ("train_b64", "duf", "lacks train_loss")])
+def test_a_model_without_its_reference_fails_before_set_up(tmp_path, traffic, named_after,
+                                                           missing):
+    """A configuration whose "model" is a family no model of the program is
+    (`named_after` and STAND_IN), with no reference file or with one that
+    serves but has no train_loss.  Every family of the program gets a whole
+    stub reference in the copy first: the two cases hold whatever references
+    the checkout gains."""
+    from pfnl_tpu_torch.models import MODEL_REGISTRY
+
     root = _copy(tmp_path)
+    for family in MODEL_REGISTRY:
+        _write_new(root / f"benchmark/reference/{family}.py", FULL_STUB)
+    model = named_after + STAND_IN
+    assert model not in MODEL_REGISTRY
+    if missing != "is missing":
+        (root / f"benchmark/reference/{model}.py").write_text(SERVING_STUB)
     cfg = json.loads((root / "benchmark/configs/pfnl.json").read_text())
     cfg.update(name=f"{model}_x4", model=model)
     name = _add_cell(root, cfg, traffic, {"worst_frame_rms": 2.0})
@@ -98,6 +144,52 @@ def test_a_model_without_its_reference_fails_before_set_up(tmp_path, traffic, mo
     with pytest.raises(LookupError, match=f"benchmark/reference/{model}.py.*{missing}"):
         core.driver(spec["traffic"], str(root)).run(ctx)
     assert [n for n, _ in ctx.marks] == ["start"]       # no scenes, weights or warm-up
+
+
+VESPCN = {"name": "vespcn", "model": "vespcn",
+          "source": "https://github.com/psychopa4/PFNL/blob/master/model/vespcn.py",
+          "paper": "Caballero et al., Real-Time Video Super-Resolution with Spatio-Temporal "
+                   "Networks and Motion Compensation, CVPR 2017",
+          "num_frames": 3, "scale": 4, "port_kwargs": {"num_frames": 3, "scale": 4},
+          "serve_dtype": "bfloat16",
+          "init": [["rnn_out\\.kernel$", "glorot*0.1"],
+                   ["kernel$", "glorot"],
+                   ["bias$", "range:-0.0866:0.0866"],
+                   ["alpha$", "range:0:0.25"]],
+          "reduced": []}
+# serving metrics whose readers read no model's kernels or counts
+MODEL_AGNOSTIC = ("device_idle_pct.serve", "read_ms.serve", "dispatch_ms.serve",
+                  "write_ms.serve", "padded_window_pct.serve")
+
+
+def test_the_next_family_comes_in_as_new_files(tmp_path):
+    """VESPCN's serving cell, added to a copy as new files and manifest
+    entries (its configuration, its limits, a stub reference) where the
+    checkout lacks them: the helpers that the fault, control and
+    import tests take their cells from list it where a serving cell belongs,
+    and the tiny cell runs on the CPU through the real model, the
+    Predictor's Y path and K7's plain path."""
+    root = _copy(tmp_path)
+    before = _snapshot(root)
+    name = f"{VESPCN['name']}.udm10"
+    if all(w["name"] != name for w in core.manifest(root)["workloads"]):
+        _add_cell(root, VESPCN, "udm10", {"worst_frame_rms": 2.0})
+        bench = json.loads((root / "BENCHMARK.json").read_text())
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if m["name"] in ("hr_fps",) + MODEL_AGNOSTIC:
+                m["workloads"].append(name)
+        (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    _write_new(root / f"benchmark/reference/{VESPCN['model']}.py", SERVING_STUB)
+
+    assert name in bench_tiny.serving_cells(root) and name in bench_tiny.one_per_pair(root)
+    assert name in bench_tiny.every_cell(root) and name not in bench_tiny.training_cells(root)
+    spec = bench_tiny.cut(core.cell(name, root=str(root)))
+    assert "hr_fps" in {m["name"] for m in spec["end_to_end"]}
+    rec = core.driver(spec["traffic"], str(root)).run(bench_tiny.context(spec))
+    assert rec["attempted"] > 0 and rec["failed"] == 0, rec["errors"]
+    assert math.isfinite(rec["checks"]["worst_frame_rms"])
+    for p, data in before.items():
+        assert Path(p).read_bytes() == data
 
 
 HARNESS = sorted(glob.glob(os.path.join(core.ROOT, "benchmark", "drivers", "*.py"))

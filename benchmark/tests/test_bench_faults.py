@@ -2,17 +2,20 @@
 broken underneath, at a size the CPU runs (the harness's look for a chip
 skipped); and the control, the reference at the precision below the
 configuration's in the program's place, fails the limits: at a tiny size
-here, at the cell's own size on the card (`gpu`)."""
+here, at the cell's own size on the card (`gpu`).  The cells come from the
+manifest: a cell added there is checked here with no edit."""
 
 import pytest
+import torch
 
 import bench_tiny
 from benchmark import core
 
-SERVING = ["pfnl.udm10", "duf52l.udm10"]
+SERVING = bench_tiny.serving_cells()
+TRAINING = bench_tiny.training_cells()
 
 
-@pytest.mark.parametrize("cell", SERVING + ["pfnl.train"])
+@pytest.mark.parametrize("cell", bench_tiny.one_per_pair())
 def test_a_sound_run_is_correct(cell):
     spec, rec = bench_tiny.run(cell)
     correct, checks = core.judge(rec, spec["limits"])
@@ -43,23 +46,30 @@ def test_a_step_that_leaves_the_state_unchanged_is_not_correct(monkeypatch):
         self.global_step += 1
 
     monkeypatch.setattr(Trainer, "apply_gradients", no_update)
-    spec, rec = bench_tiny.run("pfnl.train")
-    correct, checks = core.judge(rec, spec["limits"])
-    assert not correct and checks["median_change_gap"]["value"] > 0.5, checks
+    for cell in TRAINING:
+        spec, rec = bench_tiny.run(cell)
+        correct, checks = core.judge(rec, spec["limits"])
+        assert not correct and checks["median_change_gap"]["value"] > 0.5, (cell, checks)
 
 
 def test_half_the_batch_left_out_is_not_correct(monkeypatch):
+    """The loss of the cell's own model over the first half of the batch."""
     from pfnl_tpu_torch.train import losses
 
-    full = losses.LOSS_REGISTRY["pfnl"]
+    for cell in TRAINING:
+        model = core.cell(cell)["config"]["model"]
+        full = losses.LOSS_REGISTRY[model]
 
-    def half(out, gt, lr):
-        b = gt.shape[0] // 2
-        return full({"sr": out["sr"][:b]}, gt[:b], lr[:b])
+        def half(out, gt, lr, full=full):
+            b = gt.shape[0] // 2
+            kept = {k: v[:b] if torch.is_tensor(v) and v.shape[0] == gt.shape[0] else v
+                    for k, v in out.items()}
+            return full(kept, gt[:b], lr[:b])
 
-    monkeypatch.setitem(losses.LOSS_REGISTRY, "pfnl", half)
-    spec, rec = bench_tiny.run("pfnl.train")
-    assert not core.judge(rec, spec["limits"])[0], rec["checks"]
+        with monkeypatch.context() as m:
+            m.setitem(losses.LOSS_REGISTRY, model, half)
+            spec, rec = bench_tiny.run(cell)
+        assert not core.judge(rec, spec["limits"])[0], (cell, rec["checks"])
 
 
 @pytest.mark.parametrize("cell", SERVING)
@@ -70,7 +80,7 @@ def test_the_control_fails_at_a_tiny_size(cell):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", SERVING + ["pfnl.uhd4k", "pfnl.train"])
+@pytest.mark.parametrize("cell", bench_tiny.every_cell())
 def test_the_control_fails_at_the_cells_size(cell, cuda):
     spec = core.cell(cell)
     ctx = core.Context(spec, 2 ** 31 + 77, 1.0, False, cuda, 0.0)

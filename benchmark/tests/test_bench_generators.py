@@ -34,7 +34,7 @@ def test_clip_plan_is_deterministic_and_the_same_mix_for_every_seed():
 
 
 def test_training_sequences_are_deterministic_for_a_seed():
-    spec = bench_tiny.spec("pfnl.train")
+    spec = bench_tiny.spec(bench_tiny.training_cells()[0])
     store_a, seqs_a = fit.sequences(bench_tiny.context(spec))
     store_b, seqs_b = fit.sequences(bench_tiny.context(spec))
     assert [s.truth for s in seqs_a] == [s.truth for s in seqs_b]

@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 
+import bench_tiny
 from benchmark import core
 
 SCRIPT = """
@@ -16,20 +17,25 @@ sys.path[:0] = [{root!r}, {tests!r}]
 import benchmark.run, benchmark.calibrate
 import bench_tiny
 from benchmark import core
-for cell in ("pfnl.udm10", "duf52l.udm10", "pfnl.train"):
+for cell in {cells!r}:
     spec, rec = bench_tiny.run(cell, seconds=1.0)
     for m in spec["end_to_end"] + spec["per_layer"]:
         core.reader(m["name"])(rec)
+    print("RAN", cell)
 print("FORBIDDEN", core.forbidden_modules())
 """
 
 
 def test_a_run_loads_nothing_of_jax_or_the_jax_package():
+    """One cell of each configuration and driver, from the manifest."""
     tests = os.path.dirname(os.path.abspath(__file__))
+    cells = bench_tiny.one_per_pair()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", SCRIPT.format(root=core.ROOT, tests=tests)],
+    script = SCRIPT.format(root=core.ROOT, tests=tests, cells=cells)
+    out = subprocess.run([sys.executable, "-c", script],
                          capture_output=True, text=True, timeout=600, env=env, cwd=core.ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
+    assert [line[4:] for line in out.stdout.splitlines() if line.startswith("RAN ")] == cells
     assert "FORBIDDEN []" in out.stdout
 
 

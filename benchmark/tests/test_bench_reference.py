@@ -86,7 +86,7 @@ def test_training_reference_is_the_programs_step():
     from pfnl_tpu_torch.config import preset
     from pfnl_tpu_torch.train.trainer import Trainer
 
-    cfg = bench_tiny.spec("pfnl.train")["config"]
+    cfg = bench_tiny.spec(bench_tiny.training_cells()[0])["config"]
     model, w0 = weights.build(cfg, torch.float32, "cpu", 23)
     tr = cfg["train"]
     pcfg = preset("pfnl", reload=False, seed=5, batch_size=2, in_size=8)
