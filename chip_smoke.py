@@ -8,8 +8,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. the device: name, count, torch/CUDA versions, nvidia-smi name and
      power limit;
   2. build every kernel from csrc/ with nvcc; the build seconds and the
-     ptxas register / shared-memory / spill report; the HMMA (tensor-core
-     mma) instructions in each kernel entry's SASS (cuobjdump -sass),
+     ptxas register / shared-memory / spill report; the tensor-core
+     instructions (HMMA for mma.sync, HGMMA for wgmma) in each kernel
+     entry's SASS (cuobjdump -sass),
      failing if a bf16 entry of kernel 1, 2, 3, 4, 9 or 10 has none (all
      six run on the tensor cores in bf16), if a float32 entry of kernel
      2, 3, 5 or 6 (3xTF32 on the tensor cores: HMMA.1688.F32.TF32) has
@@ -474,7 +475,7 @@ INIT_PINS = {
 TF32_ENTRIES = ("pfrb_a_tf32_mma_kernel", "pfrb_b_tf32_mma_kernel",
                 "pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
                 "wgrad_tf32_mma_kernel")  # the float32 entries of kernels 2, 3, 5 and 6: 3xTF32
-TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_mma_kernel", "pfrb_a_bf16_mma_kernel",
+TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_wgmma_kernel", "pfrb_a_bf16_mma_kernel",
                        "pfrb_b_bf16_mma_kernel", "pfnl_tail_bf16_mma_kernel",
                        "duf_block_pointwise_bf16_mma_kernel", "duf_block_conv_bf16_mma_kernel",
                        "duf_dense_bf16_mma_kernel") + TF32_ENTRIES
@@ -535,15 +536,15 @@ def phase_build():
         for line in f:
             if "Compiling entry function" in line or "Used" in line or "spill" in line:
                 print("  " + line.strip().replace("ptxas info    : ", ""))
-    counts = hmma_counts(_build.LIB, _build.tool)
+    counts = tensor_core_counts(_build.LIB, _build.tool)
     names = _demangled(list(counts), _build.tool)
-    print(f"[2 sass] HMMA instructions per kernel entry (cuobjdump -sass {_build.LIB}):")
+    print(f"[2 sass] HMMA + HGMMA instructions per kernel entry (cuobjdump -sass {_build.LIB}):")
     for mangled, n in counts.items():
         print(f"  {n:5d}  {names[mangled]}")
     for want in TENSOR_CORE_ENTRIES:
         found = {k: n for k, n in counts.items() if want in k}
         if not found or not all(found.values()):
-            fail(f"{want}: entries {found or 'missing'}; every one must hold HMMA instructions")
+            fail(f"{want}: entries {found or 'missing'}; every one must hold HMMA or HGMMA instructions")
     spills = ptxas_spills(_build.PTXAS_LOG)
     spilled = {k: v for k, v in spills.items() if any(e in k for e in TF32_ENTRIES) and any(v)}
     if spilled or not any(e in k for k in spills for e in TF32_ENTRIES):
@@ -569,8 +570,9 @@ def ptxas_spills(log):
     return spills
 
 
-def hmma_counts(lib, tool):
-    """{mangled kernel entry: HMMA instructions in its SASS}, from cuobjdump -sass."""
+def tensor_core_counts(lib, tool):
+    """{mangled kernel entry: tensor-core instructions in its SASS}, from
+    cuobjdump -sass: HMMA (mma.sync) and HGMMA (wgmma)."""
     sass = subprocess.run([tool("cuobjdump"), "-sass", lib], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     counts, entry = {}, None
@@ -579,7 +581,7 @@ def hmma_counts(lib, tool):
         if m:
             entry = m.group(1)
             counts[entry] = 0
-        elif entry is not None and "HMMA" in line:
+        elif entry is not None and ("HMMA" in line or "HGMMA" in line):
             counts[entry] += 1
     return counts
 

@@ -1,7 +1,7 @@
 // Tensor-core and async-copy primitives of sm_80+ used by the bf16 kernels
-// (kernel 1 in nonlocal_flash.cu, kernels 2-3 in pfrb.cu, kernel 9's product
-// in duf_block.cu, and the conv tile of kernels 4, 9 and 10 in
-// duf_conv_mma.cuh):
+// (kernels 2-3 in pfrb.cu, kernel 9's product in duf_block.cu, and the
+// conv tile of kernels 4, 9 and 10 in duf_conv_mma.cuh; kernel 1 in
+// nonlocal_flash.cu takes ldmatrix and pack_bf16 for its wgmma operands):
 // mma.sync m16n8k16 bf16 with float32 accumulation, ldmatrix, cp.async;
 // and by the float32 entries of kernels 2-3 and 5-6 (tf32_conv.cuh):
 // mma.sync m16n8k8 TF32 run three times a k-step on a hi + lo split

@@ -127,6 +127,15 @@ def constant(name: str) -> int:
     return fn()
 
 
+def query(name: str, *ints: int) -> int:
+    """The long long returned by the library's C entry `name` of int
+    arguments (a size the entry's caller allocates)."""
+    fn = getattr(_library(), name)
+    if fn.restype is not ctypes.c_longlong:
+        fn.argtypes, fn.restype = [ctypes.c_int] * len(ints), ctypes.c_longlong
+    return fn(*ints)
+
+
 @functools.cache
 def splat_max_disp() -> int:
     """The largest flow bound kernels 7 and 8 take on the card: MAX_R of

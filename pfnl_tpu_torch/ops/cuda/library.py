@@ -76,8 +76,13 @@ def nonlocal_flash(theta: torch.Tensor, phi: torch.Tensor, g: torch.Tensor) -> t
     b, n, d = theta.shape
     m, dv = g.shape[1], g.shape[2]
     out = torch.empty(b, n, dv, dtype=g.dtype, device=g.device)
-    _launch("nonlocal_flash", _entry("nonlocal_flash", g.dtype), theta, phi, g, out,
-            b, n, m, d, dv)
+    if g.dtype == torch.bfloat16:  # the entry first packs phi and g into padded key tiles
+        packed = torch.empty(_build.query("pfnl_nonlocal_flash_bf16_packed_bytes", b, m, dv),
+                             dtype=torch.uint8, device=g.device)
+        _launch("nonlocal_flash", "pfnl_nonlocal_flash_bf16", theta, phi, g, out, packed,
+                b, n, m, d, dv)
+    else:
+        _launch("nonlocal_flash", "pfnl_nonlocal_flash_f32", theta, phi, g, out, b, n, m, d, dv)
     return out
 
 

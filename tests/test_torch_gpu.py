@@ -83,21 +83,28 @@ def _attention_inputs(gen, dtype, b, n, m, d, dv=None):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [30, 84, 96])
-@pytest.mark.parametrize("b,n,m", [(2, 256, 256), (1, 300, 200), (1, 1000, 777)])
-def test_nonlocal_flash_kernel(gen, dtype, b, n, m, d):
-    """Kernel 1 at D below, at and on the padded width (96), with N and M
-    not multiples of the 64-row tiles."""
-    theta, phi, g = _attention_inputs(gen, dtype, b, n, m, d)
-    _assert_close(nonlocal_flash(theta, phi, g), nonlocal_attention_chunked(theta, phi, g), dtype)
+@pytest.mark.parametrize("d,dv", [(30, 30), (84, 84), (96, 96), (30, 96), (96, 30), (16, 16)])
+@pytest.mark.parametrize("b,n,m", [(2, 256, 256), (1, 300, 200), (1, 1000, 777), (1, 1, 1),
+                                   (1, 127, 127), (1, 128, 128), (1, 129, 129), (1, 1, 1000),
+                                   (1, 1000, 1), (1, 129, 127), (4, 1000, 1000)])
+def test_nonlocal_flash_kernel(gen, dtype, b, n, m, d, dv):
+    """Kernel 1 at D and Dv below, at and on the padded widths (bf16: D to
+    96, Dv to 88 or 96), apart and equal, with N and M at the edges of the
+    128-query blocks and 128-key tiles and beyond, N != M, four windows of
+    different content; two calls bitwise equal."""
+    theta, phi, g = _attention_inputs(gen, dtype, b, n, m, d, dv)
+    got = nonlocal_flash(theta, phi, g)
+    _assert_close(got, nonlocal_attention_chunked(theta, phi, g), dtype)
+    assert torch.equal(got, nonlocal_flash(theta, phi, g))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_nonlocal_flash_peaked_softmax(gen, dtype):
-    """PFNL's self-attention at 720p: theta = phi in [0, 1), [1, 14400, 84],
-    scores up to about 84 on the diagonal."""
-    theta = torch.rand((1, 14400, 84), generator=gen, device="cuda").to(dtype)
-    g = _randn(gen, 1, 14400, 84).to(dtype)
+@pytest.mark.parametrize("n", [14400, 129600])
+def test_nonlocal_flash_peaked_softmax(gen, dtype, n):
+    """PFNL's self-attention at 720p and at 4K: theta = phi in [0, 1),
+    [1, n, 84], scores up to about 84 on the diagonal."""
+    theta = torch.rand((1, n, 84), generator=gen, device="cuda").to(dtype)
+    g = _randn(gen, 1, n, 84).to(dtype)
     got = nonlocal_flash(theta, theta, g)
     assert torch.isfinite(got).all()
     _assert_close(got, nonlocal_attention_chunked(theta, theta, g), dtype)
