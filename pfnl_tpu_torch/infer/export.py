@@ -5,8 +5,9 @@ geometry with `torch.export` (non-strict, eval mode, grad off) and returns
 the `torch.export.save` bytes of the program, its weights baked in, with the
 artifact's meta (input shape, dtype and device, model name) among its extra
 files.  With `model_name` the program is the family's whole serving
-program, as the JAX package's `make_serving_fn` has it: a Y-channel family
-(VESPCN, MCResNet, LTDVSR, DRVSR) emits final RGB [B,H,W,3] (SR Y + bicubic
+program, as the JAX package's `make_serving_fn` has it: a model whose
+`y_channel` is set, as the Predictor's `serve` reads it (VESPCN, MCResNet,
+LTDVSR, DRVSR), emits final RGB [B,H,W,3] (SR Y + bicubic
 CbCr -> ycbcr2rgb, DRVSR with `last_only`), PFNL and DUF their RGB
 [B,1,H,W,3], FRVSR its windowed forward's "sr" [B,T,H,W,3] (the streaming
 path's state feedback is a Python loop and stays with the Predictor).
@@ -45,14 +46,13 @@ import zipfile
 import torch
 
 META_FILE = "pfnl_meta.json"  # the meta's name among the artifact's extra files
-Y_FAMILIES = ("vespcn", "mcresnet", "ltdvsr", "drvsr")
 
 
 def serving_program(model, model_name=None, extra_kwargs=None):
     """fn(x) -> the output an artifact of `model` returns (see above)."""
     from pfnl_tpu_torch.infer.predictor import serve_rgb
 
-    if model_name in Y_FAMILIES:
+    if model_name is not None and model.y_channel:
         return lambda x: serve_rgb(model, x)
     kw = {} if model_name is not None else dict(extra_kwargs or {})
 

@@ -25,6 +25,20 @@ differs is read from the model:
     (model/vespcn.py:334-346), passing the model's `serve_kwargs`;
   * reads_truth: what `testvideos` reads by default.
 
+Both run through one serving loop (`_pipeline`) over units: a window
+batch, or FRVSR's frame 0 and then its chunks of frames.  Unit 0 is
+dispatched and written out alone, so the warm-up lands in all_time[0];
+from then on unit i is dispatched before unit i-1 is written out, so on a
+CUDA device unit i-1's download and sink overlap unit i's compute, and
+all_time[i] is dispatch i plus flush i-1 (the last flush is added to
+all_time[-1]).  A dispatch copies the unit's host arrays into a staging
+slot, uploads them with `.to(device, non_blocking=True)` (on the CPU the
+slot itself), computes on the device, converts to uint8 there and copies
+the frames into the slot's uint8 buffer; a flush waits for them and
+writes them.  The ring has two slots, used in turn and made during unit
+0's dispatch: pinned on CUDA, where each unit records a CUDA event that
+its flush waits on, plain host memory on the CPU.
+
 Frames are read through `source` and written through `sink`, frame stores
 of data/frames.py: by default `PngFrames`, PNG files on disk;
 `MemoryFrames` holds them in a dict instead, for frames that never touch
@@ -36,7 +50,7 @@ while a torch.profiler records): "predictor.clip" around the whole call
 padded, those computed only to fill the last batch), "predictor.read"
 around everything before the first dispatch, and "predictor.dispatch",
 "predictor.wait" (the host waiting on the device) and "predictor.write"
-(the sink) for each batch.
+(the sink) for each unit.
 """
 
 import os
@@ -157,201 +171,135 @@ class Predictor:
             lrs = np.pad(lrs, [[0, 0], [0, padh], [0, padw], [0, 0]], "edge")
         return lrs
 
-    def _run_windows(self, lrs: np.ndarray, save_path: str, part: int, lr_hw, clip):
-        """Window batches through the model's serving program.  lrs are
-        the LR frames edge-padded (`_edge_pad`), lr_hw their size before
-        it: the HR output is cropped back to lr_hw times the scale.  The
-        counts of the clip's span are set on `clip`.
-
-        One batch stays pending, as in the JAX Predictor: batch i is
-        dispatched before batch i-1 is written out, so on a CUDA device
-        batch i-1's download and sink overlap batch i's forward.  Batch 0
-        runs alone, so the warm-up lands in all_time[0]; all_time[i] is
-        dispatch i plus flush i-1, and the last flush is added to
-        all_time[-1].  On CUDA a batch uploads the LR frames its windows
-        span (at most batch + T - 1) and their indices, and gathers the
-        windows on the card; its uint8 frames come down into pinned
-        memory.  Two pinned buffers of each are used in turn, and a flush
-        waits on its batch's CUDA event only."""
-        t = self.num_frames
-        out_h, out_w = lr_hw[0] * self.scale, lr_hw[1] * self.scale
-        max_frame = lrs.shape[0]
-        part = min(part, max_frame)
-        num_once = max_frame // part + (0 if max_frame % part == 0 else 1)
-        num_once = min(max(num_once, self.batch_windows), max_frame)
-        windows = _clipped_windows(max_frame, t)  # [F, T]
-        n_chunks = (max_frame + num_once - 1) // num_once
-        clip.count(frames=max_frame, windows=n_chunks * num_once,
-                   padded=n_chunks * num_once - max_frame)
-
-        print(f"Save at {save_path}")
-        print(f"{max_frame} Inputs With Shape {lrs.shape[1:]}")
-        all_time = []
-        cuda = self.device.type == "cuda"
-        # CUDA: (LR frames, window indices) and uint8 outputs, two each; batch i uses [i % 2]
-        pinned_in, pinned_out = [], []
-
-        def dispatch(i, sel):
-            """Batch i's upload, forward, uint8 conversion and download,
-            enqueued; returns (host uint8 [B,H,W,3], its CUDA event)."""
-            if not cuda:
-                with torch.inference_mode():
-                    return self._serve(torch.from_numpy(lrs[sel])), None
-            while len(pinned_in) < 2:
-                pinned_in.append((torch.empty((num_once + t - 1,) + lrs.shape[1:],
-                                              dtype=torch.from_numpy(lrs[:1]).dtype,
-                                              pin_memory=True),
-                                  torch.empty(sel.shape, dtype=torch.int64, pin_memory=True)))
-            # batch i-2's uploads from these buffers preceded its forward, which flush(i-2)
-            # waited on
-            frames, idx = pinned_in[i % 2]
-            lo, hi = int(sel.min()), int(sel.max()) + 1
-            np.copyto(frames.numpy()[:hi - lo], lrs[lo:hi])
-            np.copyto(idx.numpy(), sel - lo)
-            with torch.inference_mode():
-                span = frames[:hi - lo].to(self.device, non_blocking=True)
-                clip = span[idx.to(self.device, non_blocking=True)]  # [B,T,h,w,3]
-                u8 = self._serve(clip)
-            while len(pinned_out) < 2:
-                pinned_out.append(torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True))
-            host = pinned_out[i % 2]  # batch i-2's frames were written out by flush(i-2)
-            host.copy_(u8, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            return host, done
-
-        def flush(host, done, n_valid, base):
-            with span("predictor.wait"):
-                if done is not None:
-                    done.synchronize()
-                frames = host.numpy()
-            with span("predictor.write"):
-                for j in range(n_valid):  # a copy: the pinned buffer is reused two batches on
-                    self.sink.write(os.path.join(save_path, f"{base + j:0>4}.png"),
-                                    frames[j, :out_h, :out_w].copy())
-
-        pending = None  # (host uint8, event, valid frames, first frame index)
-        for i in range(n_chunks):
-            sel = windows[i * num_once:(i + 1) * num_once]
-            pad = num_once - sel.shape[0]
-            if pad:  # as the JAX package does: every batch has one shape
-                sel = np.concatenate([sel, sel[-1:].repeat(pad, 0)])
-            st = time.perf_counter()
-            with span("predictor.dispatch"):
-                batch = (*dispatch(i, sel), num_once - pad, i * num_once)
-            if i == 0:
-                flush(*batch)
-            else:
-                if pending is not None:
-                    flush(*pending)
-                pending = batch
-            all_time.append(time.perf_counter() - st)
-        if pending is not None:
-            st = time.perf_counter()
-            flush(*pending)
-            all_time[-1] += time.perf_counter() - st
-        all_time = np.array(all_time)
-        avg = np.mean(all_time[1:]) if len(all_time) > 1 else float(all_time[0])
-        print(f"spent {np.sum(all_time)} s in total and {avg} s in average")
-        return all_time
-
-    def _run_recurrent(self, lrs: np.ndarray, save_path: str, chunk_frames: int = 32):
-        """The O(1)-state recurrence of a recurrent model (pfnl_tpu
-        `_run_recurrent`): frame 0 through `step(x)` alone, the warm-up in
-        all_time[0]; then chunks of `chunk_frames` frames, each frame through
-        `step(x, xp, est)`.  The state (the previous LR frame, the previous
-        SR exactly as `step` returned it, in the compute dtype: not clipped,
-        not rounded to uint8, not widened) stays on the device across
-        chunks.  Each SR frame goes to uint8 on the device.
-
-        On CUDA a chunk uploads its LR frames (and the one before) from a
-        pinned buffer, and its uint8 frames come down into a pinned buffer,
-        two of each, made during the warm-up and used in turn; chunk i is
-        enqueued before chunk i-1 is written out, which waits on chunk
-        i-1's CUDA event only, so the host does not wait on the device
-        inside a chunk.  No chunk is
-        padded (there is no compile to spare), so the frames do not depend
-        on chunk_frames.  The average is per frame, over frames 1..F-1
-        (the reference's per-frame print, model/frvsr.py:301)."""
-        if chunk_frames < 1:
-            raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
+    def _pipeline(self, lrs, units, compute, lr_hw, save_path: str, avg_over: int):
+        """The serving loop of both paths (module docstring); returns all_time.
+        units: (host arrays, its LR frames first; first frame index n0;
+        frames to write n);
+        compute(i, *the arrays on the device) -> uint8 [>=n,H,W,3] on the
+        device, frames n0.. cropped to lr_hw times the scale.  The average
+        printed is sum(all_time[1:]) / avg_over, all_time[0] when it is 0."""
         print(f"Save at {save_path}")
         print(f"{lrs.shape[0]} Inputs With Shape {lrs.shape[1:]}")
-        f = lrs.shape[0]
-        if f == 0:
+        if not units:
             return np.array([])
+        out_h, out_w = lr_hw[0] * self.scale, lr_hw[1] * self.scale
         cuda = self.device.type == "cuda"
-        kc = min(chunk_frames, max(f - 1, 1))
-        st = time.perf_counter()
-        pinned_in, pinned_out = [], []  # chunk i uses [i % 2]
-        with span("predictor.dispatch"):
-            with torch.inference_mode():
-                sr = self.model.step(torch.from_numpy(lrs[0:1]).to(self.device))
-                first = to_uint8(sr[0])
-            if cuda:  # pinning host memory is slow: part of the warm-up
-                for _ in range(2):
-                    pinned_in.append(torch.empty((kc + 1,) + lrs.shape[1:], dtype=torch.float32,
-                                                 pin_memory=True))
-                    pinned_out.append(torch.empty((kc,) + first.shape, dtype=torch.uint8,
-                                                  pin_memory=True))
-        with span("predictor.wait"):
-            frame0 = first.cpu().numpy()
-        with span("predictor.write"):
-            self.sink.write(os.path.join(save_path, "0000.png"), frame0)
-        all_time = [time.perf_counter() - st]
+        ring = []  # two slots [host input buffers..., host uint8 frames]; unit i uses ring[i % 2]
 
-        def dispatch(i, lo, k, sr):
-            """Frames [lo, lo+k) through `step` from state sr, enqueued;
-            returns (host uint8 [k,H,W,3], its CUDA event or None, the last SR)."""
+        def dispatch(i, arrays, n):
+            """Unit i staged, uploaded, computed and its frames downloaded,
+            enqueued; returns (host uint8 frames, their CUDA event or None)."""
+            if not ring:  # pinning host memory is slow: part of unit 0, the warm-up
+                h, w = arrays[0].shape[1:3]
+                bufs = [((max(len(u[0][k]) for u in units),) + a.shape[1:],
+                         torch.from_numpy(a).dtype) for k, a in enumerate(arrays)]
+                bufs.append(((max(u[2] for u in units), h * self.scale, w * self.scale, 3),
+                             torch.uint8))
+                ring.extend([torch.empty(shape, dtype=dtype, pin_memory=cuda)
+                             for shape, dtype in bufs] for _ in range(2))
+            # unit i-2's upload from this slot and its download into it preceded its event,
+            # which flush(i-2) waited on
+            *ins, host = ring[i % 2]
+            for buf, a in zip(ins, arrays):
+                np.copyto(buf.numpy()[:len(a)], a)
             with torch.inference_mode():
-                if cuda:
-                    # chunk i-2's upload from this buffer and its frames in pinned_out[i % 2]
-                    # preceded its event, which flush(i-2) waited on
-                    buf, host = pinned_in[i % 2], pinned_out[i % 2]
-                    np.copyto(buf.numpy()[:k + 1], lrs[lo - 1:lo + k])
-                    frames = buf[:k + 1].to(self.device, non_blocking=True)
-                else:
-                    frames = torch.from_numpy(lrs[lo - 1:lo + k])
-                    host = torch.empty((k,) + first.shape, dtype=torch.uint8)
-                for j in range(k):
-                    sr = self.model.step(frames[j + 1:j + 2], frames[j:j + 1], sr)
-                    host[j].copy_(to_uint8(sr[0]), non_blocking=cuda)
+                u8 = compute(i, *(buf[:len(a)].to(self.device, non_blocking=True)
+                                  for buf, a in zip(ins, arrays)))
+            host[:n].copy_(u8[:n], non_blocking=True)
             done = None
             if cuda:
                 done = torch.cuda.Event()
                 done.record()
-            return host, done, sr
+            return host, done
 
-        def flush(host, done, k, base):
+        def flush(host, done, base, n):
             with span("predictor.wait"):
                 if done is not None:
                     done.synchronize()
                 frames = host.numpy()
             with span("predictor.write"):
-                for j in range(k):  # a copy: the pinned buffer is reused two chunks on
+                for j in range(n):  # a copy: the slot is reused two units on
                     self.sink.write(os.path.join(save_path, f"{base + j:0>4}.png"),
-                                    frames[j].copy())
+                                    frames[j, :out_h, :out_w].copy())
 
-        pending = None  # (host uint8, event, frames, first frame index)
-        i, lo = 0, 1
-        while lo < f:
-            k = min(kc, f - lo)
+        all_time, pending = [], None  # pending: (host uint8, event, first frame index, frames)
+        for i, (arrays, base, n) in enumerate(units):
             st = time.perf_counter()
             with span("predictor.dispatch"):
-                host, done, sr = dispatch(i, lo, k, sr)
-            if pending is not None:
-                flush(*pending)
-            pending = (host, done, k, lo)
+                unit = (*dispatch(i, arrays, n), base, n)
+            if i == 0:
+                flush(*unit)
+            else:
+                if pending is not None:
+                    flush(*pending)
+                pending = unit
             all_time.append(time.perf_counter() - st)
-            i, lo = i + 1, lo + k
         if pending is not None:
             st = time.perf_counter()
             flush(*pending)
             all_time[-1] += time.perf_counter() - st
         all_time = np.array(all_time)
-        avg = np.sum(all_time[1:]) / (f - 1) if f > 1 else float(all_time[0])
+        avg = np.sum(all_time[1:]) / avg_over if avg_over else float(all_time[0])
         print(f"spent {np.sum(all_time)} s in total and {avg} s in average")
         return all_time
+
+    def _run_windows(self, lrs: np.ndarray, save_path: str, part: int, lr_hw, clip):
+        """Window batches through the model's serving program.  lrs are
+        the LR frames edge-padded (`_edge_pad`), lr_hw their size before
+        it: the HR output is cropped back to lr_hw times the scale.  A
+        batch stages the LR frames its windows span (at most batch + T - 1)
+        and the windows' indices into them, and gathers the windows on the
+        device; the last batch is padded with copies of its last window, so
+        every batch has one shape.  The counts of the clip's span are set
+        on `clip`; the average printed is per batch, over batches 1 on."""
+        max_frame = lrs.shape[0]
+        part = min(part, max_frame)
+        num_once = max_frame // part + (0 if max_frame % part == 0 else 1)
+        num_once = min(max(num_once, self.batch_windows), max_frame)
+        windows = _clipped_windows(max_frame, self.num_frames)  # [F, T]
+        units = []
+        for base in range(0, max_frame, num_once):
+            sel = windows[base:base + num_once]
+            n = sel.shape[0]
+            sel = np.concatenate([sel, sel[-1:].repeat(num_once - n, 0)])
+            lo, hi = int(sel.min()), int(sel.max()) + 1
+            units.append(((lrs[lo:hi], sel - lo), base, n))
+        clip.count(frames=max_frame, windows=len(units) * num_once,
+                   padded=len(units) * num_once - max_frame)
+        return self._pipeline(lrs, units, lambda i, frames, idx: self._serve(frames[idx]),
+                              lr_hw, save_path, len(units) - 1)
+
+    def _run_recurrent(self, lrs: np.ndarray, save_path: str, chunk_frames: int = 32):
+        """The O(1)-state recurrence of a recurrent model (pfnl_tpu
+        `_run_recurrent`): frame 0 through `step(x)` alone, the warm-up in
+        all_time[0]; then chunks of `chunk_frames` frames, each staging its
+        LR frames and the one before, each frame through `step(x, xp,
+        est)`.  The state (the previous SR exactly as `step` returned it,
+        in the compute dtype: not clipped, not rounded to uint8, not
+        widened) stays on the device across chunks.  No chunk is padded
+        (there is no compile to spare), so the frames do not depend on
+        chunk_frames.  The average printed is per frame, over frames 1..F-1
+        (the reference's per-frame print, model/frvsr.py:301)."""
+        if chunk_frames < 1:
+            raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
+        f = lrs.shape[0]
+        kc = min(chunk_frames, max(f - 1, 1))
+        units = [((lrs[0:1],), 0, 1)] if f else []
+        units += [((lrs[lo - 1:lo + kc],), lo, min(kc, f - lo)) for lo in range(1, f, kc)]
+        sr = None
+
+        def compute(i, frames):
+            nonlocal sr
+            if i == 0:
+                sr = self.model.step(frames)
+                return to_uint8(sr)
+            outs = []
+            for j in range(len(frames) - 1):
+                sr = self.model.step(frames[j + 1:j + 2], frames[j:j + 1], sr)
+                outs.append(to_uint8(sr))
+            return torch.cat(outs)
+
+        return self._pipeline(lrs, units, compute, lrs.shape[1:3], save_path, f - 1)
 
     def _run(self, read, save_path: str, part: int):
         """One clip, its LR frames [F,h,w,3] float from read(), under the

@@ -251,28 +251,38 @@ def test_pfnl_kernel_path_matches_plain_path(gen, dtype):
     assert err <= TOL[dtype], err
 
 
-@pytest.mark.parametrize("frames", [3, 13])
-def test_pipelined_predictor_on_the_card_writes_what_the_cpu_writes(gen, frames):
-    """The Predictor's CUDA path (pinned buffers used in turn, uint8 on the
-    card, one batch pending) against its CPU path on the same float32
+@pytest.mark.parametrize("family,frames", [("pfnl", 3), ("pfnl", 13), ("frvsr", 13)])
+def test_pipelined_predictor_on_the_card_writes_what_the_cpu_writes(gen, family, frames):
+    """The Predictor's CUDA path (pinned staging slots used in turn, uint8
+    on the card, one unit pending) against its CPU path on the same float32
     weights: the same frame names and len(all_time), every byte within 1
-    LSB (kernel vs plain sums).  3 frames: one batch; 13: four batches, the
-    last ragged, so each pinned buffer is reused."""
+    LSB (kernel vs plain sums).  PFNL, the window path: 3 frames, one
+    batch; 13, four batches, the last ragged, so each slot is reused.
+    FRVSR, the recurrent path: 13 frames in chunks of 4, frame 0 then three
+    chunks."""
     from pfnl_tpu_torch.infer.predictor import MemoryFrames, Predictor
 
     clip = torch.randint(0, 256, (frames, 40, 52, 3), generator=torch.Generator().manual_seed(1),
                          dtype=torch.uint8).numpy()
-    model = PFNL(num_blocks=2, generator=torch.Generator().manual_seed(0)).eval()
+    if family == "pfnl":
+        model = PFNL(num_blocks=2, generator=torch.Generator().manual_seed(0)).eval()
+    else:
+        model = seeded_model("frvsr", torch.float32, 0, "cpu", num_frames=3, mf=16, num_blocks=2)
     got = {}
     for dev in ("cpu", "cuda"):
         mem = MemoryFrames({f"c/truth/{i:04d}.png": clip[i] for i in range(frames)})
-        times = Predictor(model.to(dev), source=mem, sink=mem).test_video_truth("c", name="sr")
+        pred = Predictor(model.to(dev), source=mem, sink=mem)
+        if family == "pfnl":
+            times = pred.test_video_truth("c", name="sr")
+        else:
+            times = pred._run_recurrent(clip.astype("float32") / 255, "c/sr", 4)
         got[dev] = len(times), {p: mem.read(p) for p in mem.list("c/sr")}
     (n_cpu, cpu), (n_cuda, cuda) = got["cpu"], got["cuda"]
     assert n_cuda == n_cpu == -(-frames // 4) and list(cuda) == list(cpu)
     assert len(cuda) == frames
+    hw = (40, 52) if family == "pfnl" else (160, 208)
     for p in cpu:
-        assert cuda[p].shape == (40, 52, 3) and cuda[p].dtype == cpu[p].dtype
+        assert cuda[p].shape == hw + (3,) and cuda[p].dtype == cpu[p].dtype
         assert abs(cuda[p].astype(int) - cpu[p].astype(int)).max() <= 1, p
 
 

@@ -22,6 +22,7 @@ from pfnl_tpu_torch.data.frames import MemoryFrames
 from pfnl_tpu_torch.data.manifest import Sequence
 from pfnl_tpu_torch.data.pipeline import TrainPipeline
 from pfnl_tpu_torch.infer.predictor import Predictor
+from pfnl_tpu_torch.models.frvsr import FRVSR
 from pfnl_tpu_torch.models.pfnl import PFNL
 from pfnl_tpu_torch.train.trainer import Trainer
 from pfnl_tpu_torch.utils import spans
@@ -136,11 +137,19 @@ def _children(got, parent):
     return dict(collections.Counter(s.name for s in got if s.parent == parent.id))
 
 
-def test_predictor_clip_spans():
-    """One clip of 10 frames at 4 windows a batch: 3 batches, 12 windows
-    computed, 2 of them padding."""
+@pytest.mark.parametrize("family", ["pfnl", "frvsr"])
+def test_predictor_clip_spans(family):
+    """One clip of 10 frames.  PFNL at 4 windows a batch: 3 batches, 12
+    windows computed, 2 of them padding.  FRVSR: frame 0, then one chunk of
+    9, every frame computed once."""
     torch.manual_seed(0)
-    model = PFNL(num_frames=3, num_blocks=1, generator=torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(0)
+    if family == "pfnl":
+        model = PFNL(num_frames=3, num_blocks=1, generator=gen).eval()
+        units, counts = 3, {"frames": 10, "windows": 12, "padded": 2}
+    else:
+        model = FRVSR(num_frames=3, mf=8, num_blocks=1, generator=gen).eval()
+        units, counts = 2, {"frames": 10, "windows": 10, "padded": 0}
     rng = np.random.default_rng(0)
     store = MemoryFrames({f"clip/blur4/{k:04d}.png": rng.integers(0, 256, (8, 10, 3), np.uint8)
                           for k in range(10)})
@@ -148,13 +157,13 @@ def test_predictor_clip_spans():
     pred = Predictor(model, batch_windows=4, source=store, sink=sink)
     with profile(activities=[ProfilerActivity.CPU]):
         all_time = pred.test_video_lr("clip", name="sr")
-    assert len(all_time) == 3 and len(sink.frames) == 10
+    assert len(all_time) == units and len(sink.frames) == 10
     got = spans.records()
     clips = [s for s in got if s.name == "predictor.clip"]
     assert len(clips) == 1 and clips[0].parent == 0
-    assert clips[0].counts == {"frames": 10, "windows": 12, "padded": 2}
-    assert _children(got, clips[0]) == {"predictor.read": 1, "predictor.dispatch": 3,
-                                        "predictor.wait": 3, "predictor.write": 3}
+    assert clips[0].counts == counts
+    assert _children(got, clips[0]) == {"predictor.read": 1, "predictor.dispatch": units,
+                                        "predictor.wait": units, "predictor.write": units}
     read = next(s for s in got if s.name == "predictor.read")
     first = min(s.t0_ns for s in got if s.name == "predictor.dispatch")
     assert read.t1_ns <= first
