@@ -12,7 +12,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      instructions (HMMA for mma.sync, HGMMA for wgmma) in each kernel
      entry's SASS (cuobjdump -sass),
      failing if a bf16 entry of kernel 1, 2, 3, 4, 9 or 10 has none (all
-     six run on the tensor cores in bf16), if a float32 entry of kernel
+     six run on the tensor cores in bf16; kernels 2 and 3 in both their
+     bodies: wgmma, and mma.sync for unaligned views), if a float32 entry of kernel
      2, 3, 5 or 6 (3xTF32 on the tensor cores: HMMA.1688.F32.TF32) has
      none or spills, or if an entry of kernel 7 or 8 (the splat tiles)
      spills;
@@ -21,7 +22,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the plain side) and in bfloat16, with the tolerance stated, and the
      time of each beside the plain version's (CUDA events, bf16); kernels 1,
      2, 3 and 4 bitwise equal over two launches, kernel 1's time over
-     scaled_dot_product_attention's; then
+     scaled_dot_product_attention's; kernels 2 and 3 also at the serving
+     batch [4,7,180,320] in bf16 (within TOL of their plain versions,
+     bitwise equal over two launches, on the wgmma entry), with their
+     bound, and both bf16 bodies (wgmma, and
+     the earlier mma.sync body, which unaligned views keep)
+     timed in turns at [4,7,180,320] and at the training crop
+     [16,7,32,32], failing if the wgmma body is the slower at the crop; then
      the two splat kernels, 7 and 8, at their callers' shapes (K7: VESPCN
      [12,1,180,320] R=2, LTDVSR [20,1,180,320] R=1, MCResNet
      [20,1,180,320] R=2, FRVSR's HR grid [4,3,720,1280] R=1 and its
@@ -37,7 +44,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (mf 64, 20 PFRBs, 7 frames, bf16, seeded random weights) on a seeded
      24-frame 720x1280 clip degraded on the device to 180x320, frames kept
      in memory.  Checks the output frames, the kernels' launch counts per
-     forward batch, and the bf16 kernel path against the float32 plain
+     forward batch, that every launch of kernels 2 and 3 took the wgmma
+     body (the per-entry count), and the bf16 kernel path against the float32 plain
      path on the first window; prints delivered HR frames/s (the pipelined
      Predictor, steady) beside the forward's alone (CUDA events around
      `serve` on one batch) and peak memory;
@@ -341,8 +349,10 @@ DUF_TIMED = "last SAME-T block"         # the 7a case in the JSON summary
 # phase 7b: rel L2 of the backbone's output against the f32 plain path; bf16: 24 blocks
 # each rounding `a` and its output to bf16 (2^-8 relative) compound; f32: summation order
 BACKBONE_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
-TIMED = {"nonlocal_flash": "bf16 [2,14400,84]", "pfrb_a": "bf16 [2,7,180,320,64]",
-         "pfrb_b": "bf16 [2,7,180,320,64]", "pfnl_tail": "bf16 [2,7,180,320,64]",
+TIMED = {"nonlocal_flash": "bf16 [2,14400,84]",
+         "pfrb_a": "bf16 [2,7,180,320,64]; serving_ms at [4,7,180,320,64]",
+         "pfrb_b": "bf16 [2,7,180,320,64]; serving_ms at [4,7,180,320,64]",
+         "pfnl_tail": "bf16 [2,7,180,320,64]",
          "pfrb_bwd_b": "float32 [16,7,32,32,64]", "pfrb_bwd_a": "float32 [16,7,32,32,64]",
          "bounded_splat": "bf16 VESPCN [12,1,180,320] R=2", "spmc_splat": "bf16 DRVSR [12,180,320]",
          "duf_block": "bf16 F=384 [2,7,180,320]", "duf_dense": "bf16 F=384 [2,7,180,320]"}
@@ -475,12 +485,16 @@ INIT_PINS = {
 TF32_ENTRIES = ("pfrb_a_tf32_mma_kernel", "pfrb_b_tf32_mma_kernel",
                 "pfrb_bwd_b_tf32_mma_kernel", "pfrb_bwd_a_tf32_mma_kernel",
                 "wgrad_tf32_mma_kernel")  # the float32 entries of kernels 2, 3, 5 and 6: 3xTF32
-TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_wgmma_kernel", "pfrb_a_bf16_mma_kernel",
+TENSOR_CORE_ENTRIES = ("nonlocal_flash_bf16_wgmma_kernel", "pfrb_a_bf16_wgmma_kernel",
+                       "pfrb_b_bf16_wgmma_kernel", "pfrb_a_bf16_mma_kernel",
                        "pfrb_b_bf16_mma_kernel", "pfnl_tail_bf16_mma_kernel",
                        "duf_block_pointwise_bf16_mma_kernel", "duf_block_conv_bf16_mma_kernel",
                        "duf_dense_bf16_mma_kernel") + TF32_ENTRIES
 # phase 2: the entries of kernels 7 and 8, whose shared-memory tiles must not spill
 SPLAT_ENTRIES = ("bounded_splat_kernel", "spmc_splat_kernel")
+# phase 3: kernels 2 and 3 at the serving batch, and both bf16 bodies at it and at the
+# training crop (the wgmma body must not be the slower there)
+PFRB_SERVING, PFRB_CROP = (4, T, H, W), (TRAIN_B, T, TRAIN_HW, TRAIN_HW)
 # phases 3 and 7a: equal over two launches (7a holds kernel 10 so as well)
 BITWISE_KERNELS = ("nonlocal_flash", "pfrb_a", "pfrb_b", "pfnl_tail", "duf_block")
 
@@ -717,6 +731,85 @@ def phase_kernels(card):
     return results
 
 
+def phase_pfrb_bodies(card):
+    """Kernels 2 and 3 in bf16 at the serving batch through their ops: held
+    against their plain versions within TOL, bitwise equal over two launches,
+    every launch on the wgmma entry, then timed (TFLOP/s, bound).  Then their
+    two bodies by C entry, in turns on the same inputs: the wgmma body the
+    ops launch, and the earlier mma.sync body (kept for views a tensor map
+    cannot describe), at the serving batch and at the training crop, where
+    the wgmma body must not be the slower.  Returns
+    {name: {"serving_ms", "serving_bound_ms"}}."""
+    from pfnl_tpu_torch.ops.cuda import _build, entries
+    from pfnl_tpu_torch.ops.cuda.pfrb import pfrb_a, pfrb_b
+    from pfnl_tpu_torch.ops.pfrb_ref import pfrb_a_ref, pfrb_b_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    out = {}
+    for shape in (PFRB_SERVING, PFRB_CROP):
+        n, t, h, w = shape
+        feat = _rand((n, t, h, w, C), gen, 0.5).to(torch.bfloat16)
+        w1, w2f, w2b = (_glorot((3, 3, C, C), 9 * C, 9 * C, gen) for _ in range(3))
+        wfuse = _glorot((t, C, C), t * C, C, gen)
+        b1, bfuse, b2 = (_rand((C,), gen, 0.1) for _ in range(3))
+        i1, base = pfrb_a_ref(feat, w1, b1, wfuse, bfuse)
+        hw = n * h * w
+        flops = {"pfrb_a": hw * t * C * C * 2.0 * 10, "pfrb_b": hw * (t + 1) * C * C * 2.0 * 9}
+        wrapped = {"pfrb_a": lambda: pfrb_a(feat, w1, b1, wfuse, bfuse),
+                   "pfrb_b": lambda: pfrb_b(feat, i1, base, w2f, w2b, b2)}
+        if shape == PFRB_SERVING:
+            plain = {"pfrb_a": (i1, base), "pfrb_b": pfrb_b_ref(feat, i1, base, w2f, w2b, b2)}
+            for name, fn in wrapped.items():
+                before = entries[f"pfnl_{name}_bf16_wgmma"]
+                got = fn()
+                same = _bitwise_equal(got, fn())
+                torch.cuda.synchronize()
+                abs_err, rel_err = _max_errs(got, plain[name])
+                on_wgmma = entries[f"pfnl_{name}_bf16_wgmma"] - before == 2
+                ok = rel_err <= TOL["bfloat16"]
+                print(f"[3 kernel] {name} bfloat16 [{n},{t},{h},{w}] (the serving batch): "
+                      f"max_abs_err {abs_err:.3e}, max_rel_err {rel_err:.3e} (tolerance "
+                      f"{TOL['bfloat16']:.0e} of max|plain|) {'ok' if ok else 'DISAGREES'}; "
+                      f"bitwise equal over two launches: {same}; on the wgmma entry: {on_wgmma}",
+                      flush=True)
+                if not ok:
+                    fail(f"{name} bfloat16 at the serving batch disagrees with its plain version")
+                if not same:
+                    fail(f"{name} bfloat16 at the serving batch: two launches differ")
+                if not on_wgmma:
+                    fail(f"{name} bfloat16 at the serving batch did not take the wgmma entry")
+        kw = lambda x: _build.kernel_weight(x, torch.bfloat16, "cuda")  # noqa: E731
+        f32 = lambda x: _build.weight_f32(x, torch.bfloat16, "cuda")  # noqa: E731
+        i1o, baseo, o = torch.empty_like(feat), feat.new_empty(n, h, w, C), torch.empty_like(feat)
+        a_args = (feat, kw(w1), f32(b1), kw(wfuse), f32(bfuse), i1o, baseo, n, t, h, w)
+        b_args = (feat, i1, base, kw(w2f), kw(w2b), f32(b2), o, n, t, h, w)
+        for name, args in (("pfrb_a", a_args), ("pfrb_b", b_args)):
+            bodies = {"wgmma": lambda: _build.call(f"pfnl_{name}_bf16_wgmma", *args),
+                      "mma.sync": lambda: _build.call(f"pfnl_{name}_bf16", *args)}
+            for fn in bodies.values():
+                fn()
+            ms = {k: [] for k in bodies}
+            for k in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
+                ms[k].append(cuda_time_ms(bodies[k], reps=10))
+            ms = {k: sum(v) / len(v) for k, v in ms.items()}
+            # the entry's arguments hold each input and output buffer once
+            bound_ms, bound_by = bound(flops[name], nbytes(args), "bfloat16")
+            label = f"[{n},{t},{h},{w}]"
+            print(f"[3 bodies] {name} bf16 {label}: wgmma body {ms['wgmma']:.4f} ms "
+                  f"({flops[name] / ms['wgmma'] / 1e9:.2f} TFLOP/s, {100 * bound_ms / ms['wgmma']:.1f}% "
+                  f"of its {bound_ms:.4f} ms bound, {bound_by}), mma.sync body {ms['mma.sync']:.4f} ms "
+                  f"({ms['mma.sync'] / ms['wgmma']:.2f}x) on {card}", flush=True)
+            if shape == PFRB_SERVING:
+                kernel_ms = cuda_time_ms(wrapped[name], reps=10)
+                print(f"[3 time] {name} bf16 {label} (the serving batch) through its op: "
+                      f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {card}",
+                      flush=True)
+                out[name] = dict(serving_ms=kernel_ms, serving_bound_ms=bound_ms)
+            elif ms["wgmma"] > ms["mma.sync"]:
+                fail(f"{name} bf16 {label}: the wgmma body is slower than the mma.sync body")
+    return out
+
+
 def phase_splat_kernels(card):
     """3 (splats): kernels 7 and 8 against their plain versions at their
     callers' shapes, bitwise equal over two launches, and their bf16
@@ -818,6 +911,8 @@ def phase_end_to_end(card):
     from pfnl_tpu_torch.models.pfnl import PFNL
     from pfnl_tpu_torch.ops.cuda import KERNELS, launches, reset_launches
 
+    from pfnl_tpu_torch.ops.cuda import entries
+
     model = PFNL(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
     model = model.to("cuda").eval()
     hr_h, hr_w = H * 4, W * 4
@@ -842,6 +937,11 @@ def phase_end_to_end(card):
           flush=True)
     if any(counts[k] != want[k] * n_batches for k in KERNELS):
         fail(f"launch counts {counts} != {want} x {n_batches} batches")
+    bodies = {e: n for e, n in entries.items() if e.startswith("pfnl_pfrb_")}
+    print(f"[4 e2e] kernels 2 and 3 by entry: {bodies}", flush=True)
+    if bodies != {"pfnl_pfrb_a_bf16_wgmma": counts["pfrb_a"],
+                  "pfnl_pfrb_b_bf16_wgmma": counts["pfrb_b"]}:
+        fail(f"kernels 2 and 3 must take the wgmma body on the serving path: {bodies}")
     outs = mem.list("clip/sr")
     if len(outs) != CLIP_FRAMES:
         fail(f"{len(outs)} SR frames written, want {CLIP_FRAMES}")
@@ -3419,6 +3519,8 @@ def main():
     name, count, smi = phase_device()
     phase_build()
     results = phase_kernels(name)
+    for k, v in phase_pfrb_bodies(name).items():
+        results[k].update(v)
     results.update(phase_splat_kernels(name))
     counts, fps_4 = phase_end_to_end(name)
     phase_fwd_f32_kernels(name)
@@ -3467,6 +3569,8 @@ def main():
     kernels = [dict(name=k, route="cuda", source=SOURCE[k], replaces=TPU_KERNEL[k],
                     launches=path_launches[k], **{f: results[k][f] for f in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                    **{f: results[k][f] for f in ("serving_ms", "serving_bound_ms")
+                       if f in results[k]},
                     timed=TIMED[k])
                for k in TPU_KERNEL]
     if not all(kern["launches"] for kern in kernels):

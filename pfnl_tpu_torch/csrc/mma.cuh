@@ -39,6 +39,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_addr(row)));
 }
 
+// The inverse of ldmatrix_x4 (sm_90): register i of each lane (row lane / 4,
+// columns 2(lane % 4).. of matrix i) to shared memory, lane l giving the
+// address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void stmatrix_x4(void* row, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :
+               : "r"(smem_addr(row)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
 // d += a * b, bf16 inputs, float32 accumulator.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {

@@ -4,11 +4,11 @@
 // copy from global to shared memory that completes on an mbarrier, named
 // barriers and the warpgroup register split (setmaxnreg).
 //
-// Used by kernel 1's bf16 entry (nonlocal_flash.cu).  Meant for the next
-// redesigns of the product kernels still on mma.sync: the bf16 kernels 2-3
-// (pfrb.cu; 35-36% of their roofline in the serving cells) and 9
-// (duf_block.cu; 21%), kernel 4 (pfnl_tail.cu), and the 3xTF32 kernels 5-6
-// (pfrb_bwd.cu; 30-33%), which would add tf32 shapes here.
+// Used by the bf16 entries of kernel 1 (nonlocal_flash.cu) and kernels 2-3
+// (pfrb.cu), which also take the tensor-map copies (TMA) both ways.  Meant
+// for the next redesigns of the product kernels still on mma.sync: kernel 9
+// (duf_block.cu; 21% of its roofline), kernel 4 (pfnl_tail.cu), and the
+// 3xTF32 kernels 5-6 (pfrb_bwd.cu; 30-33%), which would add tf32 shapes here.
 //
 // Layouts.  A K-major operand (the reduction dimension K contiguous) is
 // stored in panels: a panel holds every row of the operand and one
@@ -20,7 +20,13 @@
 // of 8*W bytes.  A descriptor then names the panel's first row, the
 // stride between 8-row groups (SBO = 8*W) and the swizzle; a k-step of 16
 // elements (32 bytes) further into the same panel is the same descriptor
-// with its start 32 bytes later.
+// with its start 32 bytes later.  The XOR is taken on the address bits, as
+// a tensor-map copy with the same swizzle writes them: a descriptor may start
+// on any row of a panel written by such a copy (one 128-byte row further is
+// the start 128 bytes later), as kernels 2-3 shift a window by a pixel.
+// An MN-major operand (transposed; M or N contiguous, kernels 2-3's HWIO
+// weights) is the same picture with the roles swapped: rows are K, 128 bytes
+// of 64 M or N elements, 8-row groups SBO apart along K.
 //
 // Fragments (g = lane / 4, t = lane % 4, warp w of the warpgroup owns rows
 // 16w..16w+15 of the 64):
@@ -39,11 +45,12 @@
 namespace pfnl {
 
 // A shared-memory matrix descriptor: start address, SBO, swizzle (1: 128
-// bytes, 2: 64).  The leading byte offset is unused for swizzled K-major
-// operands (1).
+// bytes, 2: 64), LBO.  The leading byte offset is unused for swizzled K-major
+// operands (16), and for an MN-major one that is a single 64-element atom
+// wide, as kernels 2-3's 64 output channels are.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr, uint32_t sbo_bytes,
-                                               uint32_t swizzle) {
-  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+                                               uint32_t swizzle, uint32_t lbo_bytes = 16) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
          ((uint64_t)(sbo_bytes >> 4) << 32) | ((uint64_t)swizzle << 62);
 }
 constexpr uint32_t SWIZZLE_128B = 1, SWIZZLE_64B = 2;
@@ -141,6 +148,42 @@ __device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_
         "r"(accumulate));
 }
 
+#define PFNL_D32_OUT                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), \
+      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define PFNL_D32_REGS                                                                        \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+
+// d (64 x 64) += A (64 x 16, smem, K-major) * B (64 x 16, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss_tb(float (&d)[32], uint64_t desc_a,
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" PFNL_D32_REGS
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : PFNL_D32_OUT
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64) += A (64 x 16, registers) * B (64 x 16, smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" PFNL_D32_REGS
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : PFNL_D32_OUT
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+#undef PFNL_D32_OUT
+#undef PFNL_D32_REGS
+
 // mbarriers in shared memory (8 bytes each).  A phase completes when its
 // expected arrivals have arrived and, for a copy's barrier, its expected
 // bytes have landed; the parity waited for is that of the phase, 0 first.
@@ -183,6 +226,56 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
       :
       : "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// Tensor-map copies (TMA).  `map` is the address of a CUtensorMap kernel
+// parameter (__grid_constant__); coordinates are elements, innermost first,
+// and may lie outside the tensor, whose elements there read as zero.  The
+// box lands at dst (1024-byte aligned for the 128-byte swizzle) and counts
+// its full size in bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :
+      : "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* map, int c0, int c1, int c2,
+                                            int c3, int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      :
+      : "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+        "r"(smem_addr(bar))
+      : "memory");
+}
+// Shared memory to the tensor at the box's coordinates; elements outside the
+// tensor are not written.  The writing threads first make their writes
+// visible to the copy (fence_proxy_async, then a barrier); the issuing
+// thread commits the copy to a bulk group and waits for it to have read the
+// source (bulk_wait_read) before the source is written again.
+__device__ __forceinline__ void tma_store_5d(const void* map, const void* src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      :
+      : "l"(map), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed bulk groups of this thread still read their source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.

@@ -37,14 +37,18 @@ NVCC_FLAGS = GENCODE + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "
 
 # Kernel launches per kernel name, bumped by each custom op's CUDA kernel
 # (library.py) where it launches its kernel (never on the plain CPU path,
-# never while torch.export traces).
+# never while torch.export traces); beside them the same launches by the C
+# entry they called, which tells a kernel's bodies apart (kernels 2-3 in bf16:
+# `pfnl_pfrb_a_bf16_wgmma` or the mma.sync `pfnl_pfrb_a_bf16`).
 launches = collections.Counter()
+entries = collections.Counter()
 
 _lib = None
 
 
 def reset_launches():
     launches.clear()
+    entries.clear()
 
 
 def tool(name: str) -> str:

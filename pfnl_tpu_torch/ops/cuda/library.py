@@ -11,7 +11,9 @@ activation dtype):
   torch.ops.pfnl.pfrb_bwd_a      kernel 6
 
 Each op has a CUDA kernel, which allocates the outputs, launches the C
-entry through `_build.call` and adds one to `_build.launches[name]`, and a
+entry through `_build.call` and adds one to `_build.launches[name]` and to
+`_build.entries[entry]` (kernels 2-3 choose their bf16 entry from the
+inputs: `pfrb.entry`), and a
 fake implementation, which gives the outputs' shapes, dtypes and devices
 from the inputs alone (no pointer, no launch).  So `torch.export` traces a
 launch as one graph node, the exported program holds it, and a launch from
@@ -34,6 +36,7 @@ from typing import Tuple
 import torch
 
 from pfnl_tpu_torch.ops.cuda import _build
+from pfnl_tpu_torch.ops.cuda import pfrb as _pfrb
 
 # The ops are defined through the dispatcher's own API (torch.library.Library:
 # a schema, a CUDA kernel, a fake kernel).  `torch.library.custom_op` defines the
@@ -63,10 +66,17 @@ WGRAD_ENTRIES = 9 * CHANNELS * CHANNELS + CHANNELS  # kernels 5/6: dW [3,3,64,64
 def _launch(name: str, entry: str, *args):
     _build.call(entry, *args)
     _build.launches[name] += 1
+    _build.entries[entry] += 1
 
 
 def _entry(name: str, dtype: torch.dtype) -> str:
     return f"pfnl_{name}_{_build.suffix(dtype)}"
+
+
+def _pfrb_launch(name: str, feat: torch.Tensor, *args):
+    """Kernel 2 or 3 through the entry `pfrb.entry` picks for these inputs."""
+    aligned = _pfrb.aligned16(feat, *(a for a in args if isinstance(a, torch.Tensor)))
+    _launch(name, _pfrb.entry(name, feat.dtype, aligned), feat, *args)
 
 
 # --- kernel 1 ------------------------------------------------------------------------------
@@ -99,8 +109,7 @@ def pfrb_a(feat: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, wfuse: torch.
     n, t, h, w, c = feat.shape
     i1 = torch.empty_like(feat)
     base = feat.new_empty(n, h, w, c)
-    _launch("pfrb_a", _entry("pfrb_a", feat.dtype), feat, w1, b1, wfuse, bfuse, i1, base,
-            n, t, h, w)
+    _pfrb_launch("pfrb_a", feat, w1, b1, wfuse, bfuse, i1, base, n, t, h, w)
     return i1, base
 
 
@@ -115,8 +124,7 @@ def pfrb_b(feat: torch.Tensor, i1: torch.Tensor, base: torch.Tensor, w2f: torch.
            w2b: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     n, t, h, w, _ = feat.shape
     out = torch.empty_like(feat)
-    _launch("pfrb_b", _entry("pfrb_b", feat.dtype), feat, i1, base, w2f, w2b, b2, out,
-            n, t, h, w)
+    _pfrb_launch("pfrb_b", feat, i1, base, w2f, w2b, b2, out, n, t, h, w)
     return out
 
 

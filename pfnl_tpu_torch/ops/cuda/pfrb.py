@@ -7,7 +7,8 @@ float32 or bfloat16; kernels are HWIO, as flax stores them.  Both run on
 the tensor cores: bf16 as bf16 products (weights handed over as bf16,
 rounded once here), float32 as 3xTF32 products, which hold float32's
 accuracy (weights as float32); biases go as float32 rounded to the
-activation type, as the plain versions cast them.
+activation type, as the plain versions cast them.  The bf16 op launches
+one of two bodies (`entry`), and `_build.entries` counts which.
 """
 
 import torch
@@ -16,6 +17,25 @@ from pfnl_tpu_torch.ops.cuda import _build
 from pfnl_tpu_torch.ops.pfrb_ref import pfrb_a_ref, pfrb_b_ref
 
 CHANNELS = 64
+
+
+def aligned16(*tensors) -> bool:
+    """Every tensor's data starts 16-byte aligned, as a tensor map needs."""
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
+
+
+def entry(name: str, dtype: torch.dtype, aligned: bool) -> str:
+    """The C entry that op `name` ("pfrb_a" or "pfrb_b") launches: in bf16,
+    with every input 16-byte aligned, the body on the warpgroup tensor cores
+    (tensor-map copies into a ring, wgmma warpgroups); in bf16 otherwise, the
+    mma.sync body, for views a tensor map cannot describe; in float32, the
+    3xTF32 body.  A pure function of what the op observes, so every caller
+    adapts without a setting: the serving widths and the 32-wide training
+    crop alike take the wgmma body, which measured faster at both (PERF.md,
+    section 6)."""
+    if dtype != torch.bfloat16:
+        return f"pfnl_{name}_{_build.suffix(dtype)}"
+    return f"pfnl_{name}_bf16_wgmma" if aligned else f"pfnl_{name}_bf16"
 
 
 def _check_feat(name, feat):

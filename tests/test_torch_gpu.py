@@ -18,7 +18,7 @@ from pfnl_tpu_torch.models import DRVSR, DUF, LTDVSR, MCResNet, VESPCN
 from pfnl_tpu_torch.models.blocks import NonLocalBlock
 from pfnl_tpu_torch.models.duf import bn_cancelled_bias
 from pfnl_tpu_torch.models.pfnl import PFNL
-from pfnl_tpu_torch.ops.cuda import _build, launches, reset_launches
+from pfnl_tpu_torch.ops.cuda import _build, entries, launches, reset_launches
 from pfnl_tpu_torch.ops.cuda.bounded_splat import bounded_splat
 from pfnl_tpu_torch.ops.cuda.duf_block import dense_block
 from pfnl_tpu_torch.ops.cuda.duf_dense import conv3x3x3, duf_dense
@@ -129,11 +129,13 @@ def _pfrb_params(gen, t, c=64):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37), (1, 7, 45, 83), (16, 7, 32, 32)])
+@pytest.mark.parametrize("shape", [(1, 7, 9, 13), (2, 3, 20, 37), (1, 7, 45, 83), (16, 7, 32, 32),
+                                   (4, 7, 180, 320), (1, 7, 540, 960)])
 def test_pfrb_kernels(gen, dtype, shape):
     """Kernels 2 and 3 at T = 7 and 3, with H and W not multiples of the
-    bf16 kernels' 8 x 32 tile (nor of the float32 ones' 8 x 16), and at the
-    training shape (batch 16, LR 32x32); a second launch is bitwise the
+    bf16 kernels' 2 x 64 tile (nor of the mma.sync one's 8 x 32, nor of the
+    float32 ones' 8 x 16), at the training shape (batch 16, LR 32x32) and at
+    the serving shapes of 720p and 4K; a second launch is bitwise the
     same."""
     n, t, h, w = shape
     feat = _randn(gen, n, t, h, w, 64, scale=0.5).to(dtype)
@@ -163,6 +165,30 @@ def test_pfrb_kernels_read_only_their_inputs(gen, dtype, offset):
     assert all(torch.isfinite(x).all() for x in got_a + (got_b,))
     _assert_close(got_a, (i1, base), dtype)
     _assert_close(got_b, pfrb_b_ref(feat, i1, base, w2f, w2b, b2), dtype)
+
+
+@pytest.mark.parametrize("shape,offset,body", [((4, 7, 180, 320), None, "bf16_wgmma"),
+                                                ((1, 7, 540, 960), None, "bf16_wgmma"),
+                                                ((16, 7, 32, 32), None, "bf16_wgmma"),
+                                                ((1, 7, 21, 45), 8, "bf16_wgmma"),
+                                                ((1, 7, 21, 45), 1, "bf16")])
+def test_pfrb_bf16_entries_by_input(gen, shape, offset, body):
+    """Which body each bf16 launch took, by the per-entry count: fresh inputs
+    at the serving shapes and the training crop, and views 16-byte aligned,
+    take the wgmma body; views one element in (2-byte aligned) keep the
+    mma.sync body.  `launches` still counts one of each op."""
+    n, t, h, w = shape
+    feat = _randn(gen, n, t, h, w, 64, scale=0.5).to(torch.bfloat16)
+    w1, b1, wfuse, bfuse, w2f, w2b, b2 = _pfrb_params(gen, t)
+    i1, base = pfrb_a_ref(feat, w1, b1, wfuse, bfuse)
+    view = (lambda x: x) if offset is None else (lambda x: _nan_view(x, offset))
+    reset_launches()
+    got_a = pfrb_a(view(feat), w1, b1, wfuse, bfuse)
+    got_b = pfrb_b(*(view(x) for x in (feat, i1, base)), w2f, w2b, b2)
+    assert dict(entries) == {f"pfnl_pfrb_a_{body}": 1, f"pfnl_pfrb_b_{body}": 1}
+    assert dict(launches) == {"pfrb_a": 1, "pfrb_b": 1}
+    _assert_close(got_a, (i1, base), torch.bfloat16)
+    _assert_close(got_b, pfrb_b_ref(feat, i1, base, w2f, w2b, b2), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -13,7 +13,7 @@ from pfnl_tpu.ops.pallas.pfrb_pack import _chain_pack_run, pfrb_chain_pack, unpa
 from pfnl_tpu.ops.pallas.pfrb_xla import pfrb_chain_xla
 
 from pfnl_tpu_torch.ops.cuda import launches
-from pfnl_tpu_torch.ops.cuda.pfrb import pfrb_a, pfrb_b, pfrb_block
+from pfnl_tpu_torch.ops.cuda.pfrb import aligned16, entry, pfrb_a, pfrb_b, pfrb_block
 from pfnl_tpu_torch.ops.pfrb_ref import leaky_relu, pfrb_chain_ref
 
 ATOL = 2e-5
@@ -114,3 +114,29 @@ def test_bf16_base_rounds_once_where_pallas_rounds_per_frame_group(bf16_case):
     base = leaky_relu(fused + p[3]).bfloat16().float().numpy()
     ulp = 2.0 ** -8 * np.abs(want["base"]).max()
     assert np.abs(base - want["base"]).max() <= 2 * ulp
+
+
+def _offset_view(shape, dtype, offset):
+    """A `shape` view whose data starts `offset` elements into a fresh
+    allocation (one pixel's channels, expanded: the choice reads only where
+    the data starts)."""
+    return torch.zeros(offset + C, dtype=dtype)[offset:].expand(shape)
+
+
+@pytest.mark.parametrize("dtype,offset,body", [(torch.bfloat16, 0, "bf16_wgmma"),
+                                               (torch.bfloat16, 8, "bf16_wgmma"),
+                                               (torch.bfloat16, 1, "bf16"),
+                                               (torch.float32, 0, "f32"),
+                                               (torch.float32, 1, "f32")])
+def test_entry_is_chosen_from_dtype_and_alignment(dtype, offset, body):
+    """The op's C entry, a pure function of the dtype and of where the data
+    starts (the shape plays no part): bf16 views a tensor map can describe
+    (16-byte aligned: fresh, or 8 bf16 in) take the wgmma body; a view one
+    element in keeps the mma.sync body; float32 the 3xTF32 one.  The
+    float32 test view at offset 1 is only 4-byte aligned, which its entry
+    takes."""
+    feat = _offset_view((1, 3, 9, 13, C), dtype, offset)
+    aligned = aligned16(feat, torch.zeros(3, 3, C, C, dtype=dtype))
+    assert aligned == (offset * feat.element_size() % 16 == 0)
+    for name in ("pfrb_a", "pfrb_b"):
+        assert entry(name, dtype, aligned) == f"pfnl_{name}_{body}"
